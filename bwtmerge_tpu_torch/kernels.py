@@ -143,7 +143,10 @@ STREAMED_PROBE = Kernel("streamed_probe", "streamed_probe.cu",
 WALK_EMIT = Kernel("walk_emit", "walk.cu",
                    [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P],
                    "walk_error_string")
-KERNELS = (STREAMED_PROBE, WALK_EMIT)
+DECODE = Kernel("decode", "decode.cu",
+                [_P, _P, _I64, _I64, _I32, _I64, _P, _P],
+                "decode_error_string")
+KERNELS = (STREAMED_PROBE, WALK_EMIT, DECODE)
 
 
 def reset_launches() -> None:

@@ -50,6 +50,77 @@ def c_array(counts) -> np.ndarray:
     return c_arr
 
 
+def pack_nibbles_chunked(chunks):
+    """Stream (syms, lens) run chunks into the block-planar nibble layout
+    (byte k of block b: position 32b+k low, 32b+16+k high; SIGMA-filled
+    tail) without materializing run arrays or decoded text: peak host
+    memory is the 0.5 B/position buffer plus one decoded window.
+
+    Port of rank_jax.pack_nibbles_chunked, unbucketed: the buffer is exactly
+    (size // BLK + 1) * BLK / 2 bytes.  Returns (nibbles uint8, counts
+    int64[SIGMA], size, n_runs), where n_runs counts the maximal runs of the
+    text: equal neighbours merge inside a chunk as well as across chunk
+    seams, and zero-length runs count nothing."""
+    cap = 1 << 16                                    # positions
+    nib = np.full(cap // 2, NIB_FILL, dtype=np.uint8)
+    carry = np.zeros(0, np.uint8)
+    pos = 0
+    counts = np.zeros(SIGMA, np.int64)
+    n_runs = 0
+    last_sym = -1
+    for syms, lens in chunks:
+        syms = np.asarray(syms, np.uint8)
+        lens = np.asarray(lens, np.int64)
+        keep = lens > 0
+        if not keep.all():
+            syms, lens = syms[keep], lens[keep]
+        if syms.size == 0:
+            continue
+        np.add.at(counts, syms, lens)
+        n_runs += (syms.size - int(np.count_nonzero(syms[1:] == syms[:-1]))
+                   - (1 if syms[0] == last_sym else 0))
+        last_sym = int(syms[-1])
+        # decode in bounded sub-windows (a chunk's decoded size is not
+        # bounded by its encoded size for long runs)
+        cum = np.concatenate(([0], np.cumsum(lens)))
+        total_w = int(cum[-1])
+        w = 0
+        while w < total_w:
+            end = min(w + (1 << 22), total_w)
+            i0 = int(np.searchsorted(cum, w, side="right")) - 1
+            i1 = int(np.searchsorted(cum, end, side="left"))
+            wl = lens[i0:i1].copy()
+            wl[0] -= w - cum[i0]
+            wl[-1] -= cum[i1] - end
+            win = np.repeat(syms[i0:i1], wl)
+            if carry.size:
+                win = np.concatenate([carry, win])
+            usable = win.size // BLK * BLK
+            if pos + usable + BLK > cap:
+                cap = max(2 * cap, pos + usable + BLK)
+                grown = np.full(cap // 2, NIB_FILL, np.uint8)
+                grown[: nib.size] = nib
+                nib = grown
+            if usable:
+                blk = win[:usable].reshape(-1, BLK)
+                nib[pos // 2: (pos + usable) // 2] = (
+                    blk[:, :16] | (blk[:, 16:] << 4)).reshape(-1)
+                pos += usable
+            carry = win[usable:]
+            w = end
+    size = pos + carry.size
+    if carry.size:
+        tail = np.full(BLK, SIGMA, np.uint8)
+        tail[: carry.size] = carry
+        nib[pos // 2: pos // 2 + BLK // 2] = tail[:16] | (tail[16:] << 4)
+    need = (size // BLK + 1) * BLK // 2
+    if nib.size < need:
+        grown = np.full(need, NIB_FILL, np.uint8)
+        grown[: nib.size] = nib
+        nib = grown
+    return nib[:need], counts, size, n_runs
+
+
 def build_rec(nibbles: torch.Tensor, nblk: int) -> torch.Tensor:
     """Block-planar nibble text (uint8[>= nblk*16], byte k of block b holds
     position 32b+k in its low nibble and 32b+16+k in its high nibble) ->
@@ -97,6 +168,25 @@ class DeviceFMIndex:
     @property
     def device(self) -> torch.device:
         return self.rec.device
+
+    @classmethod
+    def from_nibbles(cls, nibbles: np.ndarray, counts, size: int,
+                     n_runs: int = 0, device="cuda") -> "DeviceFMIndex":
+        """Build from a block-planar nibble buffer already packed on the host
+        (pack_nibbles_chunked): the k-way fold's piece upload, which never
+        materializes run arrays.  Same record table as `build`."""
+        dev = resolve_device(device)
+        if size >= 2**31 - 1:
+            raise ValueError(
+                f"BWT shard of {size} positions exceeds int32 device layout")
+        nblk = size // BLK + 1
+        if nibbles.size < nblk * BLK // 2:
+            raise ValueError(f"nibble buffer of {nibbles.size} bytes is short "
+                             f"of {size} positions")
+        rec = build_rec(torch.from_numpy(nibbles[: nblk * BLK // 2]).to(dev),
+                        nblk)
+        return cls(rec=rec, C=torch.from_numpy(c_array(counts)).to(dev),
+                   size=size, n_runs=n_runs)
 
     @classmethod
     def build(cls, runs: RunArrays, counts=None,

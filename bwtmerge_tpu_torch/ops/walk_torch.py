@@ -22,6 +22,9 @@ from ..kernels import WALK_EMIT
 from .rank_torch import BLK, LANES, SENT, SIGMA, unpack_symbols
 
 NC = SIGMA - 1        # walked characters 1..SIGMA-1 (endmarker never walked)
+WALK_BLOCK_EMITS = 1 << 28   # emission lanes per walk launch (~10 GB of walk,
+                             # unique and sort temporaries)
+WALK_MAX_LEN = 1 << 14       # longest read the walk takes (as the JAX path)
 
 
 def _int32_wrap(x: torch.Tensor) -> torch.Tensor:

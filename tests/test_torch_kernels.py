@@ -9,6 +9,9 @@ import pytest
 import torch
 
 from bwtmerge_tpu_torch import kernels
+from bwtmerge_tpu_torch.ops.decode_torch import (decode_creads,
+                                                 decode_creads_device,
+                                                 decode_creads_plain)
 from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
                                                   streamed_probe_plain)
 from bwtmerge_tpu_torch.ops.walk_torch import (build_cplanes, walk_emit,
@@ -91,3 +94,49 @@ def test_blocked_walk_on_card_matches_cpu(cuda):
     got = blocked_walk(idx, build_cplanes(idx.rec), creads, 3, a0).finish()
     want = blocked_walk(cpu, build_cplanes(cpu.rec), creads, 3, a0).finish()
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def _real_index(device, n_reads=3000, seed=8):
+    """DeviceFMIndex of a real collection BWT: reads of 1..40 characters,
+    a few of length 1, and one of 150 (past a 64-row cap)."""
+    import numpy as np
+
+    from bwtmerge_tpu.models import oracle
+    from bwtmerge_tpu_torch.ops.rank_torch import DeviceFMIndex
+
+    rng = np.random.default_rng(seed)
+    reads = oracle.random_collection(rng, n_reads, 1, 40)
+    reads[7] = reads[7][:1]
+    reads[n_reads // 2] = rng.integers(1, 6, size=150)
+    runs = oracle.build_bwt(reads)
+    return DeviceFMIndex.build(runs, runs.counts(6), device), reads
+
+
+@pytest.mark.parametrize("lane0,width", [(0, 3000), (0, 1), (31, 33),
+                                         (32, 500), (2990, 64)])
+def test_decode_kernel_matches_plain(cuda, lane0, width):
+    # lanes start at block offsets 0 and 31 among others; some lanes start
+    # past the endmarker rows, and the long read outlives the 64-row cap
+    idx, _ = _real_index(cuda)
+    got = torch.zeros((64, width + 8), dtype=torch.int8, device=cuda)
+    want = torch.zeros_like(got)
+    before = kernels.DECODE.launches
+    n_got = decode_creads_device(idx, got[:, 4:4 + width], lane0)
+    assert kernels.DECODE.launches == before + 1
+    n_want = decode_creads_plain(idx, want[:, 4:4 + width], lane0)
+    assert torch.equal(got, want)
+    assert int(n_got) == int(n_want)
+    assert int(n_got) == (1 if lane0 <= 1500 < lane0 + width else 0)
+
+
+def test_decode_kernel_recovers_the_reads(cuda):
+    import numpy as np
+
+    from bwtmerge_tpu.formats.sidecar import creads_layout
+
+    idx, reads = _real_index(cuda)
+    got = decode_creads(idx, len(reads), idx.size, max_len_cap=1 << 14)
+    lens = np.array([r.size for r in reads], np.uint32)
+    want = creads_layout(lens, np.concatenate(reads).astype(np.uint8))
+    np.testing.assert_array_equal(got, want)
+    assert decode_creads(idx, len(reads), idx.size, max_len_cap=128) is None

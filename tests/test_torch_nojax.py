@@ -2,8 +2,9 @@
 
 Runs in a subprocess because tests/conftest.py imports jax into this one.
 There `import jax` is made to fail, every port module and chip_smoke are
-imported, and a small merge runs through the port's CLI on the CPU, so that
-a lazy import on the merge path would fail too.
+imported, and a small two-input merge and a three-input k-way fold run
+through the port's CLI on the CPU, so that a lazy import on either path
+would fail too.
 """
 
 import os
@@ -26,7 +27,10 @@ CHILD = textwrap.dedent("""
     import bwtmerge_tpu_torch.cli.common
     import bwtmerge_tpu_torch.convert
     import bwtmerge_tpu_torch.kernels
+    import bwtmerge_tpu_torch.models.kfold
     import bwtmerge_tpu_torch.models.merge
+    import bwtmerge_tpu_torch.ops.decode_torch
+    import bwtmerge_tpu_torch.ops.kfold_torch
     import bwtmerge_tpu_torch.ops.ra_stream
     import bwtmerge_tpu_torch.ops.rank_streamed
     import bwtmerge_tpu_torch.ops.walk_torch
@@ -38,7 +42,7 @@ CHILD = textwrap.dedent("""
 
     d = sys.argv[1]
     r = np.random.default_rng(1)
-    for name in "ab":
+    for name in "abc":
         seqs = oracle.random_collection(r, 6, 5, 30)
         path = f"{{d}}/{{name}}.sga"
         write_bwt(path, "sga", oracle.build_bwt(seqs), Alphabet())
@@ -48,6 +52,10 @@ CHILD = textwrap.dedent("""
     rc = cli.main([f"{{d}}/a.sga", f"{{d}}/b.sga", f"{{d}}/o.sga", "-i", "sga",
                    "-o", "sga", "-v", f"{{d}}/p.txt", "--device", "cpu",
                    "--quiet"])
+    assert rc == 0, rc
+    rc = cli.main([f"{{d}}/{{n}}.sga" for n in "abc"] + [
+        f"{{d}}/k.sga", "-i", "sga", "-o", "sga", "-v", f"{{d}}/p.txt",
+        "--device", "cpu", "--quiet"])
     assert rc == 0, rc
     assert sys.modules["jax"] is None
     print("NOJAX-OK")
