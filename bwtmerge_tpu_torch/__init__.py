@@ -1,29 +1,81 @@
 """bwtmerge_tpu_torch — the PyTorch / CUDA port of bwtmerge_tpu.
 
-The JAX package `bwtmerge_tpu` stays the reference; its host layers
-(formats, native codecs and interleave, run arrays, spill merge) are
-imported as they are.  This package holds what runs on the device: the
-FM-index in torch tensors, and hand-written CUDA kernels for the
+A package of its own beside the JAX package `bwtmerge_tpu`, which stays the
+reference: this package imports torch, never jax, and nothing of
+`bwtmerge_tpu`.  It keeps its own copy of the host layers (formats/, the
+native C++ codecs, interleave, spill and writers under native/, run arrays,
+the spill merge, the host FM-index and the numpy reference merge) and holds
+what runs on the device: the FM-index in torch tensors, the walk search,
+the trie search and the k-way fold, on hand-written CUDA kernels for the
 streamed-rank probe, the per-read walk and the read decode (csrc/, built
-with nvcc at first use).  It imports torch and never jax.
+with nvcc at first use).
 
-Slices 1 and 2 cover the two-input merge and the k-way fold on one device,
-with `-v` verification; see ROADMAP.md for the slices still to come.
+It covers the two-input merge (walk or trie search) and the k-way fold on
+one device, with `-v` verification; see ROADMAP.md for what is still to
+come.
 """
 
-from .models.fmi import FMI, load_fmi, serialize_fmi
-from .models.kfold import merge_files_many, merge_fmi_many
-from .models.merge import (MergeConfig, merge_files, merge_fmi,
-                           merge_fmi_to_file)
 
-__all__ = [
-    "FMI",
-    "load_fmi",
-    "serialize_fmi",
-    "MergeConfig",
-    "merge_fmi",
-    "merge_fmi_to_file",
-    "merge_files",
-    "merge_fmi_many",
-    "merge_files_many",
-]
+def _tune_host_allocator() -> None:
+    """Keep freed large buffers in the malloc arena instead of munmapping.
+
+    glibc's default policy (mmap every allocation over 128 KiB, munmap on
+    free) makes each fresh numpy buffer of a streaming pipeline pay its
+    first-touch page faults again.  Raising the mmap and trim thresholds
+    makes the heap retain and reuse those pages."""
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        libc.mallopt(-3, 1 << 30)  # M_MMAP_THRESHOLD
+        libc.mallopt(-1, 1 << 30)  # M_TRIM_THRESHOLD
+    except Exception:  # non-glibc platforms: default allocator behavior
+        pass
+
+
+def _disable_numpy_thp_madvise() -> None:
+    """Stop numpy from madvise(MADV_HUGEPAGE)-ing large fresh buffers.
+
+    With transparent hugepages in madvise mode an madvise'd region pays a
+    synchronous hugepage compaction at every first touch.  The pipeline's
+    buffers are RLE byte streams touched once, in order, so hugepages gain
+    them nothing."""
+    try:
+        try:
+            from numpy._core import multiarray as _ma  # numpy >= 2.0
+        except ImportError:  # numpy 1.x
+            from numpy.core import multiarray as _ma
+        _ma._set_madvise_hugepage(False)
+    except Exception:
+        pass
+
+
+_tune_host_allocator()
+_disable_numpy_thp_madvise()
+
+# The exports load on first use: the fold's subprocess stages
+# (models/kfold_stage.py) import this package and must not pay for torch.
+_EXPORTS = {
+    "FMI": ".models.fmi",
+    "load_fmi": ".models.fmi",
+    "serialize_fmi": ".models.fmi",
+    "MergeConfig": ".models.merge",
+    "merge_fmi": ".models.merge",
+    "merge_fmi_to_file": ".models.merge",
+    "merge_files": ".models.merge",
+    "merge_fmi_many": ".models.kfold",
+    "merge_files_many": ".models.kfold",
+    "build_rank_array_torch": ".ops.search_torch",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    import importlib
+
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_EXPORTS[name], __name__), name)
+    globals()[name] = value
+    return value

@@ -8,15 +8,15 @@ Port of bwtmerge_tpu/cli/bwt_merge.py.  More than two inputs run the k-way
 fold (models/kfold.py), which decodes every piece's reads on the device.
 --fold chain, --checkpoint, a non-streaming output format, or two inputs
 select the left fold of pairwise merges instead; --low-memory folds file to
-file (models/merge.merge_files).  A pairwise merge walks B's reads: from its
-read-text sidecar (`B.reads4`), or, with --search walk, decoded on the
-device and cached as B's sidecar.
+file (models/merge.merge_files).  A pairwise merge walks B's reads where it
+has their text: its read-text sidecar (`B.reads4`), or, with --search walk,
+B decoded on the device and cached as its sidecar.  Every other B (no
+sidecar under --search auto, no reads, reads of 2^14 or more characters,
+or --search trie) goes through the trie search, which needs no read text.
 
 Features of later port slices exit with status 1 and name their ROADMAP
-item: --search trie, -t > 1 and --index-placement sharded.  So does an input
-the walk cannot take: a B without a usable sidecar under --search auto, or
-reads of 2^14 or more characters (both need the trie search).  Exit status
-2 means the -v pattern counts of the output differ from the inputs' sum.
+item: -t > 1 and --index-placement sharded.  Exit status 2 means the -v
+pattern counts of the output differ from the inputs' sum.
 """
 
 from __future__ import annotations
@@ -30,13 +30,12 @@ import time
 
 import numpy as np
 
-from bwtmerge_tpu.formats.streaming import STREAM_WRITERS
-from bwtmerge_tpu.utils.metrics import in_megabytes
-
+from ..formats.streaming import STREAM_WRITERS
 from ..kernels import resolve_device
 from ..models.fmi import load_fmi, serialize_fmi
-from ..models.merge import (MergeConfig, WalkUnavailableError, merge_files,
-                            merge_fmi, merge_fmi_to_file)
+from ..models.merge import (MergeConfig, merge_files, merge_fmi,
+                            merge_fmi_to_file)
+from ..utils.metrics import in_megabytes
 from .common import check_format, read_rows, report_totals, verify_fmi
 
 
@@ -45,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="bwt_merge", add_help=True,
         description="Merge BWTs of DNA read collections on a torch device.",
         epilog="Formats: native, plain_default, plain_sorted, rfm, sdsl, "
-               "ropebwt, sga")
+               "ropebwt, sga.  Not in this port yet (exit status 1): -t N "
+               "with N > 1 and --index-placement sharded.")
     p.add_argument("files", nargs="+", metavar="FILE",
                    help="input1 input2 [input3 ...] output")
     p.add_argument("-d", dest="temp_dir", default=".", metavar="DIR",
@@ -63,15 +63,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch versions of the kernels)")
     p.add_argument("--device-blocks", dest="device_blocks", type=int,
                    default=None, metavar="N",
-                   help="read blocks walked as separate launches: block k's "
-                        "rank-array copy overlaps block k+1's walk "
-                        "(default: auto)")
+                   help="blocks of B's reads searched one after the other: "
+                        "block k's rank-array copy overlaps block k+1's "
+                        "search (default: auto)")
     p.add_argument("--search", default="auto",
                    choices=("auto", "walk", "trie"),
-                   help="search engine: the per-read walk, over B's "
-                        "read-text sidecar ('walk' decodes B's reads on the "
-                        "device when it has none, and caches them as its "
-                        "sidecar); trie is a later slice")
+                   help="search engine: 'auto' walks B's reads when B has a "
+                        "read-text sidecar and searches the reverse trie "
+                        "otherwise; 'walk' decodes B's reads on the device "
+                        "when it has no sidecar, and caches them as one; "
+                        "'trie' never reads a sidecar (default auto)")
     p.add_argument("--checkpoint", default=None, metavar="DIR",
                    help="checkpoint each pairwise merge to DIR and resume an "
                         "interrupted fold from the last completed merge")
@@ -103,8 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _later_slice(args):
     """The ROADMAP item a requested feature waits for, or None."""
-    if args.search == "trie":
-        return "--search trie: ROADMAP A.7 (slice 3)"
     if (args.devices or 1) > 1 or args.index_placement == "sharded":
         return "-t > 1 / --index-placement sharded: ROADMAP A.10 (slice 5)"
     return None
@@ -388,11 +387,7 @@ def main(argv=None) -> int:
                   file=sys.stderr)
     if route is _chain_merge and args.low_memory:
         route = _low_memory_merge
-    try:
-        return route(run)
-    except WalkUnavailableError as e:
-        print(f"bwt_merge: {e}", file=sys.stderr)
-        return 1
+    return route(run)
 
 
 if __name__ == "__main__":

@@ -10,19 +10,20 @@ for the math):
           to (value, count) pairs per lane block
   drain   a background thread dispatches each fold step's blocks and copies
           their pairs to pinned host memory on a side stream, then into an
-          on-disk spill ladder (bwtmerge_tpu.models.spill), in fold order
-  host    k-1 windowed interleave passes (bwtmerge_tpu.native.windowed),
-          chained as threads or as subprocess stages
-          (bwtmerge_tpu.models.kfold_stage, reused), so peak host memory is
-          O(window)
+          on-disk spill ladder (models/spill.py), in fold order
+  host    k-1 windowed interleave passes (native/windowed.py), chained as
+          threads or as subprocess stages (models/kfold_stage.py), so peak
+          host memory is O(window)
 
-The JAX package falls back to its trie chain when a piece's reads are too
-long for the walk; this port has no trie yet (ROADMAP slice 3) and raises
-WalkUnavailableError instead.
+The fold walks, so it needs every piece's reads decoded within the walk's
+cap.  Where a piece has a read of WALK_MAX_LEN or more characters, or the
+caller asks for search='trie', the inputs go through the left fold of
+pairwise merges with the trie search instead, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import queue
 import sys
@@ -33,12 +34,11 @@ from typing import List, Optional
 
 import numpy as np
 
-from bwtmerge_tpu.models.runs import RunArrays
-from bwtmerge_tpu.utils.alphabet import Alphabet
-
 from ..kernels import resolve_device
+from ..utils.alphabet import Alphabet
 from .fmi import FMI
-from .merge import WALK_MAX_LEN, MergeConfig, WalkUnavailableError
+from .merge import WALK_MAX_LEN, MergeConfig
+from .runs import RunArrays
 
 # spill ladder of each drained fold step: the JAX package's defaults
 # (run_buffer_runs * merge_buffers, thread_buffer_mb / 16 B per run)
@@ -60,12 +60,19 @@ def _alpha_sum(alphas: List[Alphabet]) -> Alphabet:
                     C=C.astype(np.uint64))
 
 
-class _PieceTooLong(WalkUnavailableError):
-    def __init__(self):
-        super().__init__(
-            f"a fold piece has a read of {WALK_MAX_LEN} or more characters; "
-            "the walk cannot take it and the trie search (ROADMAP slice 3) "
-            "is not in this port yet")
+class _PieceTooLong(Exception):
+    """A fold piece has a read of WALK_MAX_LEN or more characters."""
+
+
+def _trie_chain_config(config: MergeConfig) -> MergeConfig:
+    chain = copy.copy(config)
+    chain.search = "trie"
+    return chain
+
+
+def _note_chain_fallback() -> None:
+    print("kfold: piece reads exceed the walk cap; falling back to the "
+          "pairwise chain", file=sys.stderr)
 
 
 class _FoldDevice:
@@ -119,7 +126,8 @@ class _FoldDevice:
 def merge_fmi_many(fmis: List[FMI], config: Optional[MergeConfig] = None
                    ) -> FMI:
     """K-way merge of in-memory FMIs: the fold for three or more inputs,
-    the pairwise merge_fmi for two."""
+    the left fold of pairwise merge_fmi for two, under search='trie', and
+    where a piece's reads are too long for the walk."""
     from .merge import merge_fmi
 
     config = (config or MergeConfig()).sanitize()
@@ -128,13 +136,20 @@ def merge_fmi_many(fmis: List[FMI], config: Optional[MergeConfig] = None
     if len(fmis) == 1:
         return fmis[0]
     alpha = _alpha_sum([f.alpha for f in fmis])
-    if len(fmis) == 2:
-        return merge_fmi(fmis[0], fmis[1], config)
-    chunks = _fold_chain_chunks(
-        len(fmis), lambda k: (fmis[k].runs, fmis[k].alpha), config,
-        a_chunks=fmis[0].runs.iter_chunks(1 << 20),
-        piece_chunks=lambda k: fmis[k].runs.iter_chunks(1 << 20))
-    return FMI(runs=_materialize(chunks), alpha=alpha)
+    if len(fmis) > 2 and config.search != "trie":
+        try:
+            chunks = _fold_chain_chunks(
+                len(fmis), lambda k: (fmis[k].runs, fmis[k].alpha), config,
+                a_chunks=fmis[0].runs.iter_chunks(1 << 20),
+                piece_chunks=lambda k: fmis[k].runs.iter_chunks(1 << 20))
+            return FMI(runs=_materialize(chunks), alpha=alpha)
+        except _PieceTooLong:
+            _note_chain_fallback()
+            config = _trie_chain_config(config)
+    acc = fmis[0]
+    for f in fmis[1:]:
+        acc = merge_fmi(acc, f, config)
+    return acc
 
 
 def merge_files_many(paths: List[str], out_path: str, in_fmts,
@@ -145,18 +160,18 @@ def merge_files_many(paths: List[str], out_path: str, in_fmts,
                      chain: str = "procs") -> None:
     """K-way streaming file merge (streaming output formats only).
 
-    Three or more inputs run the fold; two run the pairwise merge_files.
-    Each piece's runs are resident only while its nibbles are packed and
+    Three or more inputs run the fold; two, any number under search='trie',
+    and inputs with a read too long for the walk run the left fold of
+    pairwise merge_files through native-format files in config.temp_dir.
+    In the fold each piece's runs are resident only while its nibbles are packed and
     uploaded; the interleave chain re-reads every file in bounded windows.
     The output is written to a temporary file beside out_path and renamed
     over it only when complete.  `stats` receives piece_bases (every
     input's size) on every route, plus the fold's step timings.  `chain`
     runs the interleave passes as 'procs' (subprocess stages, one core
     each) or 'threads'."""
-    from bwtmerge_tpu.formats.streaming import write_bwt_stream
-    from bwtmerge_tpu.formats.streaming_read import (alphabet_for,
-                                                     read_bwt_chunks)
-
+    from ..formats.streaming import write_bwt_stream
+    from ..formats.streaming_read import alphabet_for, read_bwt_chunks
     from ..ops.rank_torch import pack_nibbles_chunked
     from .merge import merge_files
 
@@ -175,12 +190,34 @@ def merge_files_many(paths: List[str], out_path: str, in_fmts,
         prefix=".bwtmerge_out_",
         dir=os.path.dirname(os.path.abspath(out_path)))
     os.close(fd)
+
+    def chain_files(chain_config):
+        """Left fold of pairwise merge_files; the last merge writes
+        tmp_out."""
+        bases = []
+        cur, cur_fmt = paths[0], in_fmts[0]
+        with tempfile.TemporaryDirectory(dir=config.temp_dir,
+                                         prefix=".bwtmerge_fold_") as tmpdir:
+            for k in range(1, len(paths)):
+                last = k == len(paths) - 1
+                dst = tmp_out if last else os.path.join(tmpdir,
+                                                        f"fold_{k}.native")
+                dst_fmt = out_fmt if last else "native"
+                merge_files(cur, paths[k], dst, cur_fmt, dst_fmt,
+                            chain_config, window_positions, stats,
+                            in_fmt_b=in_fmts[k])
+                bases.append(stats["b_bases"])
+                if k == 1:
+                    bases.insert(0, stats["a_bases"])
+                elif os.path.exists(cur):
+                    os.remove(cur)
+                cur, cur_fmt = dst, dst_fmt
+        stats["piece_bases"] = bases
+        os.replace(tmp_out, out_path)
+
     try:
-        if len(paths) == 2:
-            merge_files(paths[0], paths[1], tmp_out, in_fmts[0], out_fmt,
-                        config, window_positions, stats, in_fmt_b=in_fmts[1])
-            stats["piece_bases"] = [stats["a_bases"], stats["b_bases"]]
-            os.replace(tmp_out, out_path)
+        if len(paths) == 2 or config.search == "trie":
+            chain_files(config)
             return
 
         def loader(k):
@@ -204,6 +241,7 @@ def merge_files_many(paths: List[str], out_path: str, in_fmts,
             window_positions=window_positions, stats=stats,
             alphas_out=alphas, ready_event=ready, error_out=error,
             chain=chain, piece_files=list(zip(paths, in_fmts)))
+        too_long = False
         try:
             with config.timer.phase("fold chain (interleave+write)"):
                 # only the writer needs the summed alphabet, so the wait for
@@ -224,8 +262,14 @@ def merge_files_many(paths: List[str], out_path: str, in_fmts,
                         yield from it
 
                 write_bwt_stream(tmp_out, out_fmt, with_peek(), alpha)
+        except _PieceTooLong:
+            too_long = True
         finally:
             chunks.close()     # an abandoned chain stops its stages
+        if too_long:
+            _note_chain_fallback()
+            chain_files(_trie_chain_config(config))
+            return
         os.replace(tmp_out, out_path)
     finally:
         if os.path.exists(tmp_out):
@@ -249,8 +293,8 @@ def _fold_chain_chunks(k_total: int, loader, config: MergeConfig, a_chunks,
     one it runs here, before the chain starts."""
     import concurrent.futures
 
-    from bwtmerge_tpu.native.windowed import interleave_windowed_chunks
-    from bwtmerge_tpu.utils.pipeline import prefetch_chunks
+    from ..native.windowed import interleave_windowed_chunks
+    from ..utils.pipeline import prefetch_chunks
 
     dev = _FoldDevice(config.device)
     steps = _StepDrainer(dev, k_total - 1, config.temp_dir, stats=stats,
@@ -319,14 +363,14 @@ def _fold_chain_chunks(k_total: int, loader, config: MergeConfig, a_chunks,
 
 def _proc_chain_chunks(steps, k_total: int, piece_files, window: int):
     """The interleave chain as subprocess stages joined by pipes
-    (bwtmerge_tpu.models.kfold_stage): each windowed pass runs on its own
+    (models/kfold_stage.py): each windowed pass runs on its own
     core.  Stage k starts once step k-1's rank array is in its spill files,
     which the child reads and deletes; its A input is the previous stage's
     stdout."""
     import subprocess
 
     def gen():
-        from bwtmerge_tpu.models.kfold_stage import read_frames
+        from .kfold_stage import read_frames
 
         repo = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
@@ -338,7 +382,8 @@ def _proc_chain_chunks(steps, k_total: int, piece_files, window: int):
             for k in range(1, k_total):
                 steps.wait_spill(k - 1)
                 spill_args = [f"{p}:{n}" for p, n in steps.spill_files(k - 1)]
-                cmd = [sys.executable, "-m", "bwtmerge_tpu.models.kfold_stage",
+                cmd = [sys.executable, "-m",
+                       "bwtmerge_tpu_torch.models.kfold_stage",
                        "--b-path", piece_files[k][0],
                        "--b-fmt", piece_files[k][1],
                        "--window", str(window), "--spill"] + spill_args
@@ -376,7 +421,7 @@ class _StepDrainer:
     in fold order.
 
     Each block's pairs cross to pinned host memory on a side stream
-    (ops/ra_stream._Block), so later blocks' walks overlap earlier blocks'
+    (ops/ra_stream.Block), so later blocks' walks overlap earlier blocks'
     copies; two drain workers move them into the step's RankArraySpill and
     at most two blocks are outstanding.  Draining to disk bounds device
     memory: the chain's stages run concurrently, so holding every step's
@@ -443,7 +488,7 @@ class _StepDrainer:
         return None
 
     def _new_spill(self):
-        from bwtmerge_tpu.models.spill import RankArraySpill
+        from .spill import RankArraySpill
 
         return RankArraySpill(temp_dir=self._temp_dir,
                               spill_threshold_runs=SPILL_THRESHOLD_RUNS,
@@ -468,7 +513,7 @@ class _StepDrainer:
                   f"{spill.n_spill_files} spill files)", file=sys.stderr)
 
     def _run(self):
-        from ..ops.ra_stream import _Block
+        from ..ops.ra_stream import Block
 
         sem = threading.Semaphore(2)
         work: queue.Queue = queue.Queue()
@@ -518,7 +563,7 @@ class _StepDrainer:
                         self.check()
                     self.check()
                     values, counts = thunk()     # this block's walks
-                    work.put((i, _Block(values, counts), spill, lock, left))
+                    work.put((i, Block(values, counts), spill, lock, left))
                     del values, counts
                 del thunks
         except BaseException as e:  # noqa: BLE001 - surfaces at consumers

@@ -1,16 +1,18 @@
-"""The walk's rank array, block by block, as one ascending chunk stream.
+"""A blocked search's rank array, block by block, as one ascending chunk
+stream.
 
 Port of the consumption side of bwtmerge_tpu/ops/search_jax.py
-(BlockedPackedRA, make_block_part, stream_packed_ra) for the walk search.
-The JAX package packs each block's runs into byte, nibble and pair-code
-planes because its host link moved tens of MB/s; here each block's
-sorted-unique (int64 value, int64 count) pairs cross PCIe unpacked.
+(BlockedPackedRA, make_block_part, stream_packed_ra), for the walk search
+and the trie search alike.  The JAX package packs each block's runs into
+byte, nibble and pair-code planes to spare its host link; here each
+block's sorted-unique (int64 value, int64 count) pairs cross PCIe unpacked.
 
-Read blocks partition B's read lanes.  Each block is walked and reduced on
-the device (walk_torch.walk_runs); on CUDA its pairs are then copied into
-pinned host memory on a side stream, so block k's copy overlaps block
-k+1's walk.  stream() merges the blocks' ascending streams with the JAX
-package's merge_ra_chunk_streams, which sums values shared by blocks.
+Blocks partition B's reads.  Each block is searched and reduced on the
+device (walk_torch.walk_runs, search_torch.search_block_runs); on CUDA its
+pairs are then copied into pinned host memory on a side stream, so block
+k's copy overlaps block k+1's search.  stream() merges the blocks'
+ascending streams with merge_ra_chunk_streams, which sums values shared by
+blocks.
 """
 
 from __future__ import annotations
@@ -18,13 +20,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bwtmerge_tpu.models.spill import merge_ra_chunk_streams
+from ..models.spill import merge_ra_chunk_streams
 
 from .rank_torch import DeviceFMIndex
 from .walk_torch import walk_runs
 
 
-class _Block:
+class Block:
     """One block's pairs on the host (or on their way there)."""
 
     def __init__(self, values: torch.Tensor, counts: torch.Tensor):
@@ -60,8 +62,8 @@ class _Block:
             yield v[s:s + chunk_runs], c[s:s + chunk_runs]
 
 
-class BlockedWalkRA:
-    """Per-block walk rank arrays consumed as one ascending sorted-unique
+class BlockedRA:
+    """Per-block rank arrays consumed as one ascending sorted-unique
     (values, counts) chunk stream.  Duck-types the consumption surface the
     merges read (stream, finish, prefer_stream, n_spill_files,
     total_spilled_bytes, n_runs)."""
@@ -93,7 +95,7 @@ class BlockedWalkRA:
 
 
 def blocked_walk(index: DeviceFMIndex, cpl: torch.Tensor, creads: np.ndarray,
-                 n_blocks: int, a_sequences: int) -> BlockedWalkRA:
+                 n_blocks: int, a_sequences: int) -> BlockedRA:
     """Walk creads int8[max_len, R] (host) in `n_blocks` read blocks on the
     index's device.  Each block's root share is its read count."""
     max_len, r_total = creads.shape
@@ -105,5 +107,5 @@ def blocked_walk(index: DeviceFMIndex, cpl: torch.Tensor, creads: np.ndarray,
         dev = torch.from_numpy(blk).to(index.device)
         values, counts = walk_runs(cpl, index.C, dev, a_sequences,
                                    blk.shape[1])
-        blocks.append(_Block(values, counts))
-    return BlockedWalkRA(blocks)
+        blocks.append(Block(values, counts))
+    return BlockedRA(blocks)

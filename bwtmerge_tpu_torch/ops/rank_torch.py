@@ -27,9 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bwtmerge_tpu.models.runs import RunArrays
-
 from ..kernels import resolve_device
+from ..models.runs import RunArrays
 
 SIGMA = 6
 LANES = 8        # occ lanes (sigma padded)
@@ -193,7 +192,7 @@ class DeviceFMIndex:
               device="cuda") -> "DeviceFMIndex":
         """Pack the runs to nibbles on the host, upload 0.5 B/position and
         derive the record table on `device`."""
-        from bwtmerge_tpu.native import nib4_pack
+        from ..native import nib4_pack
 
         dev = resolve_device(device)
         size = runs.size()

@@ -1,8 +1,9 @@
 """The port's bwt_merge CLI (bwtmerge_tpu_torch/cli/bwt_merge.py) against the
 JAX package's, on the CPU: same output bytes, same -v counts, same exit
 status, on every route (two-input merge, k-way fold, pairwise chain,
---low-memory, --checkpoint resume, --search walk without a sidecar);
-later-slice features exit with status 1.
+--low-memory, --checkpoint resume, --search walk without a sidecar,
+--search trie, a B without a sidecar); later-slice features exit with
+status 1.
 """
 
 import os
@@ -124,8 +125,15 @@ def test_corrupted_sidecar_fails_verification_alike(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["-t", "2"], ["--index-placement", "sharded"], ["--search", "trie"]])
 def test_later_slice_features_exit_1(tmp_path, inputs, capsys, argv):
-    a, b, _, _, _ = inputs
+    a, b, pats, _, _ = inputs
     out = tmp_path / "o.sga"
+    if argv == ["--search", "trie"]:
+        # no later slice any more: three inputs under --search trie take the
+        # pairwise chain with the trie search, to the JAX CLI's bytes
+        res = _both(tmp_path, capsys, [a, b, a], ["-v", pats, *argv],
+                    sidecars=False)
+        _assert_same(res, 3)
+        return
     rc = port_cli.main([a, b, a, str(out), "-i", "sga", "--device", "cpu",
                         "--quiet", *argv])
     assert rc == 1
@@ -279,13 +287,16 @@ def test_search_walk_without_sidecar_matches_jax(tmp_path, pieces, capsys,
 
 
 def test_b_without_sidecar_exits_1(tmp_path, inputs, capsys):
-    a, _, _, _, b_seqs = inputs
+    # a B without a sidecar exits 0: --search auto sends it through the trie
+    # search, and the output and the -v counts are the JAX CLI's
+    a, _, pats, a_seqs, b_seqs = inputs
     b = _write(tmp_path / "b_plain.sga", b_seqs)
-    rc = port_cli.main([a, b, str(tmp_path / "o.sga"), "-i", "sga",
-                        "--device", "cpu", "--quiet"])
-    assert rc == 1
-    err = capsys.readouterr().err
-    assert "sidecar" in err and "slice 3" in err
+    res = _both(tmp_path, capsys, [a, b], ["-v", pats], sidecars=False)
+    _assert_same(res, 2)
+    from bwtmerge_tpu.formats import read_bwt
+
+    runs, _, _ = read_bwt(str(tmp_path / "port" / "out.sga"), "sga")
+    assert runs == oracle.merge_collections([a_seqs, b_seqs])
 
 
 def test_too_few_files_and_missing_input(tmp_path):

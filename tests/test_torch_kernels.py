@@ -140,3 +140,33 @@ def test_decode_kernel_recovers_the_reads(cuda):
     want = creads_layout(lens, np.concatenate(reads).astype(np.uint8))
     np.testing.assert_array_equal(got, want)
     assert decode_creads(idx, len(reads), idx.size, max_len_cap=128) is None
+
+
+@pytest.mark.parametrize("streamed", [True, False])
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_trie_search_on_the_card_matches_numpy(cuda, streamed, blocks):
+    # the trie search's steps on the card (the streamed ones launch K1 at
+    # every depth) against the host search, on reads of mixed lengths
+    import numpy as np
+
+    import bwtmerge_tpu_torch as port
+    from bwtmerge_tpu_torch.models import oracle
+    from bwtmerge_tpu_torch.ops import search_np
+
+    r = np.random.default_rng(5)
+    a = port.FMI.from_runs(oracle.build_bwt(
+        oracle.random_collection(r, 300, 1, 80)))
+    b = port.FMI.from_runs(oracle.build_bwt(
+        oracle.random_collection(r, 200, 1, 80)))
+    want = search_np.build_rank_array(
+        a.rank_index, a.alpha.C.astype(np.int64),
+        b.rank_index, b.alpha.C.astype(np.int64),
+        a.sequences(), b.sequences())
+    before = kernels.STREAMED_PROBE.launches
+    got = port.build_rank_array_torch(a, b, port.MergeConfig(device="cuda"),
+                                      sequence_blocks=blocks,
+                                      streamed=streamed)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    launched = kernels.STREAMED_PROBE.launches - before
+    assert (launched >= 2 * 80) if streamed else (launched == 0)

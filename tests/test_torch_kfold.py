@@ -25,6 +25,7 @@ import bwtmerge_tpu_torch as port  # noqa: E402
 from bwtmerge_tpu.formats import read_bwt, write_bwt  # noqa: E402
 from bwtmerge_tpu.formats.sidecar import creads_layout  # noqa: E402
 from bwtmerge_tpu.models import kfold as jax_kfold  # noqa: E402
+from bwtmerge_tpu.models import oracle  # noqa: E402
 from bwtmerge_tpu.models.build import build_from_reads  # noqa: E402
 from bwtmerge_tpu.models.fmi import FMI as JaxFMI  # noqa: E402
 from bwtmerge_tpu.models.merge import MergeConfig as JaxConfig  # noqa: E402
@@ -32,7 +33,6 @@ from bwtmerge_tpu.ops import kfold_jax, rank_jax  # noqa: E402
 from bwtmerge_tpu.ops.search_jax import stream_packed_ra  # noqa: E402
 from bwtmerge_tpu.ops.search_np import build_rank_array  # noqa: E402
 from bwtmerge_tpu_torch.models import kfold as port_kfold  # noqa: E402
-from bwtmerge_tpu_torch.models.merge import WalkUnavailableError  # noqa: E402
 from bwtmerge_tpu_torch.ops import kfold_torch  # noqa: E402
 from bwtmerge_tpu_torch.ops.rank_torch import (DeviceFMIndex,  # noqa: E402
                                                pack_nibbles_chunked)
@@ -356,18 +356,64 @@ def test_failing_loader_neither_hangs_nor_writes(tmp_path, chain):
     assert _leftovers(tmp_path) == []
 
 
-def test_piece_too_long_names_slice_3(tmp_path, monkeypatch):
+def test_piece_too_long_names_slice_3(tmp_path, monkeypatch, capfd):
+    _piece_too_long_takes_the_trie_chain(tmp_path, monkeypatch, capfd,
+                                         "threads")
+
+
+def test_piece_too_long_takes_the_trie_chain_from_procs(tmp_path, monkeypatch,
+                                                        capfd):
+    _piece_too_long_takes_the_trie_chain(tmp_path, monkeypatch, capfd,
+                                         "procs")
+
+
+def test_merge_fmi_many_piece_too_long_matches_jax(tmp_path, monkeypatch,
+                                                   capfd):
+    # the in-memory fold takes the same way out: pairwise merge_fmi on the
+    # trie search, to the JAX package's runs
+    monkeypatch.setattr(port_kfold, "WALK_MAX_LEN", 64)
+    rng = np.random.default_rng(62)
+    reads_list = [_random_reads(rng, 5) for _ in range(3)]
+    reads_list[2].append(rng.integers(1, 6, size=150).astype(np.uint8))
+    runs = [oracle.build_bwt(r) for r in reads_list]
+    got = within(120, port.merge_fmi_many,
+                 [port.FMI.from_runs(r) for r in runs],
+                 port.MergeConfig(device="cpu", temp_dir=str(tmp_path)))
+    assert "falling back to the pairwise chain" in capfd.readouterr().err
+    assert got.runs == oracle.merge_collections(reads_list)
+    trie = within(120, port.merge_fmi_many,
+                  [port.FMI.from_runs(r) for r in runs],
+                  port.MergeConfig(device="cpu", temp_dir=str(tmp_path),
+                                   search="trie"))
+    assert trie.runs == got.runs
+
+
+def _piece_too_long_takes_the_trie_chain(tmp_path, monkeypatch, capfd, chain):
+    # a piece with a read the walk cannot take sends the fold to the
+    # pairwise chain with the trie search (the port's cap is lowered to 64
+    # so that a read of 150 passes it); the chain's bytes are the JAX
+    # package's fold's
     monkeypatch.setattr(port_kfold, "WALK_MAX_LEN", 64)
     rng = np.random.default_rng(61)
     reads_list = [_random_reads(rng, 5) for _ in range(3)]
     reads_list[1].append(rng.integers(1, 6, size=150).astype(np.uint8))
     paths = _write_pieces(tmp_path, reads_list)
+    want = str(tmp_path / "jax.sga")
+    jax_kfold.merge_files_many(paths, want, "sga", "sga",
+                               JaxConfig(backend="jax",
+                                         temp_dir=str(tmp_path)))
+    capfd.readouterr()
     out = tmp_path / "out.sga"
-    with pytest.raises(WalkUnavailableError, match="slice 3"):
-        within(60, port.merge_files_many, paths, str(out), "sga", "sga",
-               port.MergeConfig(device="cpu", temp_dir=str(tmp_path)),
-               chain="threads")
-    assert not out.exists()
+    stats = {}
+    within(120, port.merge_files_many, paths, str(out), "sga", "sga",
+           port.MergeConfig(device="cpu", temp_dir=str(tmp_path)),
+           stats=stats, chain=chain)
+    assert "falling back to the pairwise chain" in capfd.readouterr().err
+    with open(out, "rb") as g, open(want, "rb") as w:
+        assert g.read() == w.read()
+    assert stats["piece_bases"] == [read_bwt(p, "sga")[0].size()
+                                    for p in paths]        # C.4
+    assert _leftovers(tmp_path) == []
 
 
 def test_drainer_push_never_blocks_after_failure(tmp_path):

@@ -1,5 +1,6 @@
 """The port's two-input merge (bwtmerge_tpu_torch/models/merge.py) against the
-JAX package's walk-search merge, on the CPU: the written files must be
+JAX package's merge, on the CPU, by the walk search and, where B comes
+without usable read text, by the trie search: the written files must be
 byte-identical.
 """
 
@@ -17,7 +18,6 @@ from bwtmerge_tpu.models import fmi as jax_fmi  # noqa: E402
 from bwtmerge_tpu.models import merge as jax_merge  # noqa: E402
 from bwtmerge_tpu.models import oracle  # noqa: E402
 from bwtmerge_tpu.utils.alphabet import Alphabet  # noqa: E402
-from bwtmerge_tpu_torch.models.merge import WalkUnavailableError  # noqa: E402
 
 
 def _write(tmp_path, name, seqs, sidecar):
@@ -85,34 +85,56 @@ def test_merge_fmi_serialized_matches_jax(tmp_path, walk_env, blocks):
     assert m.hash() == merged.hash()
 
 
+def _jax_merge_to_file(a_path, b_path, want, tmp_path):
+    jax_merge.merge_fmi_to_file(
+        jax_fmi.load_fmi(a_path, "sga"), jax_fmi.load_fmi(b_path, "sga"),
+        want, "sga", jax_merge.MergeConfig(backend="jax",
+                                           temp_dir=str(tmp_path)))
+
+
 def test_merge_without_sidecar_raises(tmp_path):
+    # a B without a sidecar raises nothing: under search='auto' it goes
+    # through the trie search, in both packages, to the same bytes
     r = np.random.default_rng(5)
-    a_path = _write(tmp_path, "a", oracle.random_collection(r, 5, 1, 30), False)
-    b_path = _write(tmp_path, "b", oracle.random_collection(r, 5, 1, 30), False)
-    with pytest.raises(WalkUnavailableError, match="sidecar"):
-        port.merge_fmi(port.load_fmi(a_path, "sga"),
-                       port.load_fmi(b_path, "sga"),
-                       port.MergeConfig(device="cpu"))
+    a = oracle.random_collection(r, 5, 1, 30)
+    b = oracle.random_collection(r, 5, 1, 30)
+    a_path = _write(tmp_path, "a", a, False)
+    b_path = _write(tmp_path, "b", b, False)
+    want = str(tmp_path / "jax.sga")
+    _jax_merge_to_file(a_path, b_path, want, tmp_path)
+    merged = port.merge_fmi(port.load_fmi(a_path, "sga"),
+                            port.load_fmi(b_path, "sga"),
+                            port.MergeConfig(device="cpu"))
+    got = str(tmp_path / "port.sga")
+    port.serialize_fmi(merged, got, "sga")
+    assert _read(got) == _read(want)
+    assert merged.runs == oracle.merge_collections([a, b])
 
 
 def test_merge_with_foreign_sidecar_raises(tmp_path, capsys):
-    # the sidecar of another collection fails the JAX package's gate
+    # the sidecar of another collection fails the consistency gate of both
+    # packages; it is ignored with a warning and the trie search merges B
     r = np.random.default_rng(6)
     a_path = _write(tmp_path, "a", oracle.random_collection(r, 5, 1, 30), False)
     b_path = _write(tmp_path, "b", oracle.random_collection(r, 5, 1, 30), False)
     write_sidecar_reads(sidecar_path(b_path),
                         oracle.random_collection(r, 5, 1, 30))
-    with pytest.raises(WalkUnavailableError):
-        port.merge_fmi_to_file(port.load_fmi(a_path, "sga"),
-                               port.load_fmi(b_path, "sga"),
-                               str(tmp_path / "o.sga"), "sga",
-                               port.MergeConfig(device="cpu"))
-    assert not (tmp_path / "o.sga").exists()
+    want = str(tmp_path / "jax.sga")
+    _jax_merge_to_file(a_path, b_path, want, tmp_path)
+    capsys.readouterr()
+    got = str(tmp_path / "o.sga")
+    port.merge_fmi_to_file(port.load_fmi(a_path, "sga"),
+                           port.load_fmi(b_path, "sga"), got, "sga",
+                           port.MergeConfig(device="cpu"))
+    assert "ignoring stale reads sidecar" in capsys.readouterr().err
+    assert _read(got) == _read(want)
 
 
 def test_config_refuses_trie_and_missing_cuda(monkeypatch):
-    with pytest.raises(ValueError, match="slice 3"):
-        port.MergeConfig(device="cpu", search="trie").sanitize()
+    # the trie is a search like the others; an unknown one is refused
+    assert port.MergeConfig(device="cpu", search="trie").sanitize()
+    with pytest.raises(ValueError, match="auto/walk/trie"):
+        port.MergeConfig(device="cpu", search="dfs").sanitize()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         port.MergeConfig(device="cuda").sanitize()
@@ -123,6 +145,6 @@ def test_fmi_device_index_is_cached_and_never_jax(tmp_path):
     f = port.load_fmi(a_path, "sga")
     idx = f.device_index("cpu")
     assert f.device_index("cpu") is idx
-    assert f._device is None              # the JAX index was never built
+    assert not hasattr(f, "_device")      # the port's FMI has no JAX index
     f.invalidate()
     assert f.device_index("cpu") is not idx

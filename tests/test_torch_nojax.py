@@ -1,71 +1,161 @@
-"""The port imports torch and never jax.
+"""The port is a package of its own: it imports torch, never jax, and
+nothing of the JAX package bwtmerge_tpu.
 
-Runs in a subprocess because tests/conftest.py imports jax into this one.
-There `import jax` is made to fail, every port module and chip_smoke are
-imported, and a small two-input merge and a three-input k-way fold run
-through the port's CLI on the CPU, so that a lazy import on either path
-would fail too.
+The first case runs in a subprocess because tests/conftest.py imports jax
+into this one.  The child, and every process it starts (the fold's
+subprocess stages), runs under a sitecustomize that makes an import of
+`jax`, `jax.*`, `bwtmerge_tpu` or `bwtmerge_tpu.*` raise.  There the
+fixtures are made with the port's own formats and oracle, every port module
+and chip_smoke are imported, and the port's CLI runs a two-input merge by
+the walk and by the trie search and a three-input k-way fold with its
+subprocess chain, so that a lazy import on any of these paths fails too.
+The second case reads the port's sources for such an import.
 """
 
 import os
+import pkgutil
+import re
 import subprocess
 import sys
 import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-CHILD = textwrap.dedent("""
+HOOK = textwrap.dedent("""
     import sys
-    for name in [m for m in sys.modules if m == "jax" or m.startswith("jax.")]:
-        del sys.modules[name]
-    sys.modules["jax"] = None           # any `import jax` now raises
-    sys.path.insert(0, {root!r})
+
+
+    class _Refuse:
+        names = ("jax", "bwtmerge_tpu")
+
+        def find_spec(self, fullname, path=None, target=None):
+            if fullname.split(".")[0] in self.names:
+                raise ImportError(f"the port must not import {fullname}")
+            return None
+
+
+    sys.meta_path.insert(0, _Refuse())
+""")
+
+CHILD = textwrap.dedent("""
+    import importlib
+    import pkgutil
+    import sys
+
+    assert any(type(f).__name__ == "_Refuse" for f in sys.meta_path)
+    for name in ("jax", "bwtmerge_tpu", "bwtmerge_tpu.formats", "jax.numpy"):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            pass
+        else:
+            raise AssertionError(f"{name} imported under the hook")
 
     import numpy as np
     import bwtmerge_tpu_torch
-    import bwtmerge_tpu_torch.cli.bwt_merge as cli
-    import bwtmerge_tpu_torch.cli.common
-    import bwtmerge_tpu_torch.convert
-    import bwtmerge_tpu_torch.kernels
-    import bwtmerge_tpu_torch.models.kfold
-    import bwtmerge_tpu_torch.models.merge
-    import bwtmerge_tpu_torch.ops.decode_torch
-    import bwtmerge_tpu_torch.ops.kfold_torch
-    import bwtmerge_tpu_torch.ops.ra_stream
-    import bwtmerge_tpu_torch.ops.rank_streamed
-    import bwtmerge_tpu_torch.ops.walk_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        bwtmerge_tpu_torch.__path__, "bwtmerge_tpu_torch.")]
+    assert len(names) > 35, names
+    for name in names:
+        importlib.import_module(name)
     import chip_smoke
-    from bwtmerge_tpu.formats import write_bwt
-    from bwtmerge_tpu.formats.sidecar import sidecar_path, write_sidecar_reads
-    from bwtmerge_tpu.models import oracle
-    from bwtmerge_tpu.utils.alphabet import Alphabet
+    import bwtmerge_tpu_torch.cli.bwt_merge as cli
+    from bwtmerge_tpu_torch.formats import read_bwt, write_bwt
+    from bwtmerge_tpu_torch.formats.sidecar import (sidecar_path,
+                                                    write_sidecar_reads)
+    from bwtmerge_tpu_torch.models import oracle
+    from bwtmerge_tpu_torch.utils.alphabet import Alphabet
 
     d = sys.argv[1]
     r = np.random.default_rng(1)
+    colls = []
     for name in "abc":
         seqs = oracle.random_collection(r, 6, 5, 30)
-        path = f"{{d}}/{{name}}.sga"
+        colls.append(seqs)
+        path = f"{d}/{name}.sga"
         write_bwt(path, "sga", oracle.build_bwt(seqs), Alphabet())
         write_sidecar_reads(sidecar_path(path), seqs)
-    with open(f"{{d}}/p.txt", "w") as f:
+    with open(f"{d}/p.txt", "w") as f:
         f.write("ACG\\nTTA\\n")
-    rc = cli.main([f"{{d}}/a.sga", f"{{d}}/b.sga", f"{{d}}/o.sga", "-i", "sga",
-                   "-o", "sga", "-v", f"{{d}}/p.txt", "--device", "cpu",
-                   "--quiet"])
+    common = ["-i", "sga", "-o", "sga", "-v", f"{d}/p.txt", "--device", "cpu",
+              "--quiet"]
+    for search in ("walk", "trie"):
+        rc = cli.main([f"{d}/a.sga", f"{d}/b.sga", f"{d}/o_{search}.sga",
+                       "--search", search, *common])
+        assert rc == 0, (search, rc)
+        runs, _, _ = read_bwt(f"{d}/o_{search}.sga", "sga")
+        assert runs == oracle.merge_collections(colls[:2]), search
+    # three inputs: the k-way fold, its interleave passes as subprocess
+    # stages (python -m bwtmerge_tpu_torch.models.kfold_stage), which
+    # inherit the hook through PYTHONPATH
+    rc = cli.main([f"{d}/{n}.sga" for n in "abc"] + [f"{d}/k.sga", *common])
     assert rc == 0, rc
-    rc = cli.main([f"{{d}}/{{n}}.sga" for n in "abc"] + [
-        f"{{d}}/k.sga", "-i", "sga", "-o", "sga", "-v", f"{{d}}/p.txt",
-        "--device", "cpu", "--quiet"])
-    assert rc == 0, rc
-    assert sys.modules["jax"] is None
-    print("NOJAX-OK")
-""").format(root=ROOT)
+    runs, _, _ = read_bwt(f"{d}/k.sga", "sga")
+    assert runs == oracle.merge_collections(colls)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "bwtmerge_tpu"))
+    assert not bad, bad
+    print("NOJAX-OK", len(names))
+""")
 
 
 def test_port_never_imports_jax(tmp_path):
+    hook_dir = tmp_path / "hook"
+    hook_dir.mkdir()
+    (hook_dir / "sitecustomize.py").write_text(HOOK)
+    work = tmp_path / "work"
+    work.mkdir()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", CHILD, str(tmp_path)],
+    env["PYTHONPATH"] = os.pathsep.join([str(hook_dir), ROOT])
+    r = subprocess.run([sys.executable, "-c", CHILD, str(work)],
                        capture_output=True, text=True, env=env, cwd=ROOT,
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NOJAX-OK" in r.stdout
+    # the hook does stop a stage that imports the JAX package
+    bad = subprocess.run(
+        [sys.executable, "-c", "import bwtmerge_tpu.models.kfold_stage"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert bad.returncode != 0 and "must not import" in bad.stderr
+
+
+IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:bwtmerge_tpu|jax)(?=[.\s,]|$)", re.M)
+SPAWN = re.compile(r"""["']bwtmerge_tpu\.[\w.]+["']""")
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "bwtmerge_tpu_torch")):
+        out += [os.path.join(base, f) for f in files
+                if f.endswith((".py", ".cpp", ".cu", ".h"))]
+    return out
+
+
+def test_port_sources_name_no_import_of_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 45
+    import bwtmerge_tpu_torch
+
+    modules = [m.name for m in pkgutil.walk_packages(
+        bwtmerge_tpu_torch.__path__, "bwtmerge_tpu_torch.")]
+    assert len([s for s in sources if s.endswith(".py")]) >= len(modules)
+    hits = []
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        for rx in (IMPORT, SPAWN):
+            hits += [(os.path.relpath(path, ROOT), m.group(0).strip())
+                     for m in rx.finditer(text)]
+    assert not hits, hits
+    # the patterns do catch what they are for
+    for line in ("import bwtmerge_tpu", "from bwtmerge_tpu import x",
+                 "    from bwtmerge_tpu.formats import read_bwt",
+                 "import jax", "from jax import numpy",
+                 "import bwtmerge_tpu.native as n"):
+        assert IMPORT.search(line), line
+    for line in ("import bwtmerge_tpu_torch", "from bwtmerge_tpu_torch.ops "
+                 "import x", "import jaxtyping"):
+        assert not IMPORT.search(line), line
+    assert SPAWN.search('"-m", "bwtmerge_tpu.models.kfold_stage"')
+    assert not SPAWN.search('"bwtmerge_tpu_torch.models.kfold_stage"')
