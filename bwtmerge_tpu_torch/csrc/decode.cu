@@ -1,37 +1,51 @@
-// Device read decode (K3): B's reads recovered from its own BWT by an LF
-// chase from each endmarker row, in the walk's end-aligned layout.
+// Device read decode (K3) and the build of its table: B's reads
+// recovered from its own BWT by an LF chase from each endmarker row, in the
+// walk's end-aligned layout.
 //
 // Replaces: bwtmerge_tpu/ops/walk_jax.py:decode_creads_device and
 // _decode_step (an XLA while_loop on the TPU; the k-way fold runs it once
 // per piece after the first).
 //
-// Contract.  rec is the index's record table int32[NBLK, 16]: words 0..7
-// hold the occ counts of each character before the block, words 8..15 the
-// block's 32 symbols, 4 per word, LSB first.  C is int32[9], the cumulative
-// character counts (C[1] = number of reads).  Lane r (0 <= r < n_lanes)
-// starts at p = lane0 + r, alive iff p < C[1].  At row t, while the lane is
-// alive and t < cap, it reads sym = BWT[p]; it writes sym to
-// creads[t * ld + r], dies at sym == 0, and otherwise steps
+// The table ("decode rows").  rows is int32[NBLK, 8]: one aligned 32-byte
+// sector per 32-position block, [occ of c = 1..5 before the block: 5 words |
+// 3 bit-planes of the block's 32 symbols: 3 words]; bit j of plane k is bit
+// k of the symbol at position j (symbols 0..6 take three bits).
+// decode_rows_build fills it from the record table int32[NBLK, 16] (words
+// 0..7 occ before the block, words 8..15 the block's 32 symbols, 4 per
+// word, LSB first).
+//
+// The decode's contract.  C is int32[9], the cumulative character counts
+// (C[1] = number of reads).  Lane r (0 <= r < n_lanes) starts at
+// p = lane0 + r, alive iff p < C[1].  At row t, while the lane is alive and
+// t < cap, it reads sym = BWT[p]; it writes sym to creads[t * ld + r], dies
+// at sym == 0, and otherwise steps
 //   p = C[sym] + occ[sym] + #{positions of p's block before p holding sym}.
 // creads is int8 and zero-filled by the caller, so the rows past a lane's
 // death read 0.  n_alive (uint64, zeroed by the caller) receives the number
-// of lanes still alive after row cap - 1: reads longer than the cap.
+// of lanes still alive after row cap - 1: reads longer than the cap.  The
+// pad symbol 6 never lies below the BWT's size; a lane that met a symbol
+// above 5 stops, so no address leaves the table.
 //
 // What bounds it on this card.  Each step of each lane is one dependent
-// 64-byte record load at a random address (two 32-byte sectors), a few
-// dozen integer operations and one byte store: the chain of dependent
-// loads, as latency at low occupancy and as sector bandwidth at full
-// occupancy, the same shape as the walk (K2).
+// load at a random address, and the memory system moves whole 32-byte
+// sectors: the decode runs at the rate of its sector traffic through the
+// L2 and, in the last rows, at the latency of its longest chains.
 //
-// What the design does about it.  One thread per read lane with p in a
-// register and the loop over rows inside the thread, so the sequential
-// dependency costs no launches.  The record is read as four 16-byte loads
-// issued together.  The character at p and the occ of that character are
-// picked by compares and selects; the in-block prefix mask is built from
-// compares and constant shifts only, never a shift by a data-dependent
-// amount (see ROADMAP C, P.1).  creads rows are lane-contiguous, so the
-// stores of a warp coalesce.  n_alive is a warp-shuffle and block
+// What the design does about it.  A step reads exactly one sector, of a
+// table of one byte per position (the record table has two sectors per
+// block), which fits the 50 MB L2 for a piece of some 40 M positions; the
+// creads stores carry streaming hints so they do not evict it.  The symbol
+// at p is three bit tests; the positions holding it are the AND of the
+// three planes, each complemented where the symbol's bit is clear; the
+// prefix is one popcount.  The bit of p's offset is formed in 64 bits: the
+// only data-dependent shift, by at most 31.  One thread per read lane with
+// p in a register and the loop over rows inside the thread, so the
+// sequential dependency costs no launches; creads rows are lane-contiguous,
+// so the stores of a warp coalesce.  n_alive is a warp-shuffle and block
 // reduction followed by one atomicAdd per block.
+//
+// The table's build.  One thread per block reads its 64-byte record once and
+// writes its 32-byte row once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,27 +54,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t pick8(const uint32_t (&w)[8], int i) {
-  uint32_t v = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v = (i == k) ? w[k] : v;
-  return v;
-}
-
-__device__ __forceinline__ uint32_t byte_of(uint32_t word, int k) {
-  uint32_t b0 = word & 0xFFu, b1 = (word >> 8) & 0xFFu;
-  uint32_t b2 = (word >> 16) & 0xFFu, b3 = word >> 24;
-  return k == 0 ? b0 : k == 1 ? b1 : k == 2 ? b2 : b3;
-}
-
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const uint4* __restrict__ rec, const int* __restrict__ C,
+decode_kernel(const uint4* __restrict__ rows, const int* __restrict__ C,
               int64_t lane0, int64_t n_lanes, int cap, int64_t ld,
               int8_t* __restrict__ creads,
               unsigned long long* __restrict__ n_alive) {
-  __shared__ int sC[9];
+  __shared__ int sC[6];
   __shared__ unsigned warp_alive[kThreads / 32];
-  if (threadIdx.x < 9) sC[threadIdx.x] = C[threadIdx.x];
+  if (threadIdx.x < 6) sC[threadIdx.x] = C[threadIdx.x];
   __syncthreads();
 
   int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -69,30 +70,22 @@ decode_kernel(const uint4* __restrict__ rec, const int* __restrict__ C,
     int64_t p = lane0 + r;
     bool live = p < (int64_t)sC[1];
     for (int t = 0; live && t < cap; ++t) {
-      const uint4* row = rec + (p >> 5) * 4;
-      uint4 o0 = __ldg(row), o1 = __ldg(row + 1);
-      uint4 s0 = __ldg(row + 2), s1 = __ldg(row + 3);
-      uint32_t w[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-      uint32_t occ[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
-      int off = (int)(p & 31);
-      int sym = (int)byte_of(pick8(w, off >> 2), off & 3);
-      creads[(int64_t)t * ld + r] = (int8_t)sym;
-      if (sym == 0) {
+      const uint4* row = rows + (p >> 5) * 2;
+      uint4 lo = __ldg(row), hi = __ldg(row + 1);
+      uint32_t bit = (uint32_t)(1ull << (p & 31));
+      bool b0 = (hi.y & bit) != 0u, b1 = (hi.z & bit) != 0u;
+      bool b2 = (hi.w & bit) != 0u;
+      int sym = (b0 ? 1 : 0) | (b1 ? 2 : 0) | (b2 ? 4 : 0);
+      __stcs(creads + (int64_t)t * ld + r, (int8_t)sym);
+      if (sym == 0 || sym > 5) {
         live = false;
         break;
       }
-      uint32_t splat = (uint32_t)sym * 0x01010101u;
-      int before = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        uint32_t eq = __vcmpeq4(w[k], splat);     // 0xFF per equal byte
-        uint32_t mask = (off > 4 * k ? 0x000000FFu : 0u)
-                      | (off > 4 * k + 1 ? 0x0000FF00u : 0u)
-                      | (off > 4 * k + 2 ? 0x00FF0000u : 0u)
-                      | (off > 4 * k + 3 ? 0xFF000000u : 0u);
-        before += __popc(eq & mask) >> 3;
-      }
-      p = (int64_t)sC[sym < 8 ? sym : 8] + (int64_t)pick8(occ, sym) + before;
+      uint32_t match = (b0 ? hi.y : ~hi.y) & (b1 ? hi.z : ~hi.z)
+                     & (b2 ? hi.w : ~hi.w);
+      uint32_t occ = sym == 1 ? lo.x : sym == 2 ? lo.y : sym == 3 ? lo.z
+                   : sym == 4 ? lo.w : hi.x;
+      p = (int64_t)sC[sym] + (int64_t)occ + __popc(match & (bit - 1u));
     }
     alive = live ? 1u : 0u;
   }
@@ -110,19 +103,53 @@ decode_kernel(const uint4* __restrict__ rec, const int* __restrict__ C,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+decode_rows_build_kernel(const uint4* __restrict__ rec, int64_t nblk,
+                         uint4* __restrict__ rows) {
+  int64_t blk = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (blk >= nblk) return;
+  const uint4* row = rec + blk * 4;
+  uint4 o0 = __ldg(row), o1 = __ldg(row + 1);
+  uint4 s0 = __ldg(row + 2), s1 = __ldg(row + 3);
+  const uint32_t w[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  uint32_t plane[3] = {0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        plane[j] |= ((w[k] >> (8 * b + j)) & 1u) << (4 * k + b);
+    }
+  }
+  rows[blk * 2] = make_uint4(o0.y, o0.z, o0.w, o1.x);
+  rows[blk * 2 + 1] = make_uint4(o1.y, plane[0], plane[1], plane[2]);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int decode_launch(const void* rec, const void* C, int64_t lane0,
+// Each returns cudaGetLastError() after the launch (0 on success).
+
+int decode_launch(const void* rows, const void* C, int64_t lane0,
                   int64_t n_lanes, int cap, int64_t ld, void* creads,
                   void* n_alive, void* stream) {
   if (n_lanes <= 0 || cap <= 0) return 0;
   int64_t blocks = (n_lanes + kThreads - 1) / kThreads;
   decode_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)rec, (const int*)C, lane0, n_lanes, cap, ld,
+      (const uint4*)rows, (const int*)C, lane0, n_lanes, cap, ld,
       (int8_t*)creads, (unsigned long long*)n_alive);
+  return (int)cudaGetLastError();
+}
+
+int decode_rows_build_launch(const void* rec, int64_t nblk, void* rows,
+                             void* stream) {
+  if (nblk <= 0) return 0;
+  int64_t blocks = (nblk + kThreads - 1) / kThreads;
+  decode_rows_build_kernel<<<(unsigned)blocks, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const uint4*)rec, nblk, (uint4*)rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,33 +1,57 @@
-// Per-read backward walk (K2): every read of B walked through A's index,
-// one emission per B position.
+// Per-read backward walk (K2) and the build of its table: every read of B
+// walked through A's index, one emission per B position.
 //
 // Replaces: bwtmerge_tpu/ops/walk_jax.py:_walk_emit and _rank_known_char
-// (an XLA lax.scan on the TPU, the merge's main-path hot loop).
+// (an XLA lax.scan on the TPU, the merge's main-path hot loop), and
+// walk_jax.py:build_cplanes for the table.
 //
-// Contract.  cpl is int32[NBLK*5, 2]: row (block*5 + c-1) holds
-// [occ of c before the block, 32-bit mask of the block's positions holding
-// c] (bit k = position k).  C is int32[9], the cumulative character counts.
+// The table ("wide planes").  planes is int32[NSB, 5, 8] with
+// NSB = ceil(NBLK / 7): row (super-block sb, c-1) is one aligned 32-byte
+// sector [occ | m0 .. m6] for the 224 positions from 224*sb on.  occ is the
+// number of c before position 224*sb; bit k of m_w is set iff position
+// 224*sb + 32*w + k holds c (positions past the record table hold nothing).
+// walk_planes_build fills it from the record table int32[NBLK, 16] (words
+// 0..7 occ before the block, words 8..15 the block's 32 symbols, 4 per
+// word, LSB first).
+//
+// The walk's contract.  C is int32[9], the cumulative character counts.
 // creads is int8[max_len, R]: row t lane r is the t-th character of read r
 // counted from its end, 0 past the end.  Lane r starts at a = a_sequences;
-// at row t with c = creads[t, r] in 1..5 it steps
-//   a = C[c] + occ + popcount(mask & ((1 << (a & 31)) - 1))
+// at row t with c = creads[t, r] in 1..5 it steps, with sb = a / 224 and
+// off = a - 224*sb, to
+//   a = C[c] + occ + popcount of the row's mask bits before bit off
 // and emits a; otherwise it emits 2^31-1 and keeps a.  emits is
 // int32[max_len * R] (row t at offset t*R); n_live (uint64, zeroed by the
 // caller) receives the number of live emissions.
 //
-// What bounds it on this card.  Each step of each lane reads one byte of
-// creads, one 8-byte cplane row at a data-dependent address, and writes 4
-// bytes: the dependent random 8-byte load (one 32-byte sector per lane)
-// bounds it, as latency at low occupancy and as sector bandwidth at full
-// occupancy.
+// What bounds it on this card (measured on an NVIDIA H100 80GB HBM3 at
+// 700 W).  Each live step is one dependent load at a data-dependent
+// address, and the memory system moves whole 32-byte sectors.  With the
+// table in the L2 the walk runs at about one sector fetched per two clocks
+// on each SM, whatever share of the sector it uses; with a table above the
+// L2's size every miss also costs a sector of device memory.
 //
-// What the design does about it.  One thread per read lane with the walk
-// state in a register and the loop over rows inside the thread, so the
-// sequential dependency costs no launches.  creads and emits rows are
-// lane-contiguous, so those accesses coalesce across a warp; only the
-// cplane row load is random, and it is a single 8-byte load.  C lives in
-// shared memory.  n_live is a warp-shuffle and block reduction followed by
-// one atomicAdd per block.
+// What the design does about it.  A step reads exactly one sector and may
+// need any byte of it: 0.71 bytes of table per position of A, so a table
+// above the L2's size misses less and the table of an index of some 60 M
+// positions fits the 50 MB L2.  creads is loaded and emits are stored with
+// streaming hints (evicted first).  The table is loaded plainly: an L2
+// set-aside with evict_last loads, and a persisting access window over the
+// table, were both slower at every size tried.  One thread per read lane
+// with the walk state in a register and the loop over rows inside the
+// thread; the next row's character is loaded before this row's step, so
+// its latency hides behind the sector's.  creads and emits rows are
+// lane-contiguous, so those accesses coalesce.  The in-sector prefix is seven predicated popcounts:
+// no register is indexed by data, and the only data-dependent shift is a
+// 64-bit one by at most 31.  n_live is a warp-shuffle and block reduction
+// followed by one atomicAdd per block.
+//
+// The table's build.  One thread per (super-block, word): word 0 copies the five
+// occ counts of block 7*sb, words 1..7 each turn one block's packed
+// symbols into its five masks.  The eight threads of a super-block write
+// the eight words of a row together, so every store fills whole sectors;
+// the record table is read once (the symbol half of every record, the occ
+// half of every seventh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,11 +59,33 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kNC = 5;  // walked characters 1..5
+constexpr int kNC = 5;         // walked characters 1..5
+constexpr int kSuper = 224;    // positions per table row: 7 mask words
+constexpr int kWords = 7;
 constexpr int kSent = 0x7FFFFFFF;
 
+// One step of lane state a on character c: the row's sector, then occ plus
+// the mask bits before bit off.
+__device__ __forceinline__ int walk_step(const uint4* __restrict__ planes,
+                                         const int* sC, int a, int c) {
+  int sb = a / kSuper;
+  int off = a - sb * kSuper;
+  const uint4* row = planes + ((int64_t)sb * kNC + (c - 1)) * 2;
+  uint4 lo = __ldg(row), hi = __ldg(row + 1);   // 32 bytes, one sector
+  const uint32_t m[kWords] = {lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  int word = off >> 5;
+  uint32_t low = (uint32_t)((1ull << (off & 31)) - 1ull);
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    uint32_t take = word > w ? 0xFFFFFFFFu : (word == w ? low : 0u);
+    count += __popc(m[w] & take);
+  }
+  return sC[c] + (int)lo.x + count;
+}
+
 __global__ void __launch_bounds__(kThreads)
-walk_emit_kernel(const int2* __restrict__ cpl, const int* __restrict__ C,
+walk_emit_kernel(const uint4* __restrict__ planes, const int* __restrict__ C,
                  const int8_t* __restrict__ creads, int max_len, int64_t R,
                  int a0, int* __restrict__ emits,
                  unsigned long long* __restrict__ n_live) {
@@ -52,17 +98,19 @@ walk_emit_kernel(const int2* __restrict__ cpl, const int* __restrict__ C,
   unsigned live = 0;
   if (r < R) {
     int a = a0;
+    int next = __ldcs(creads + r);
     for (int t = 0; t < max_len; ++t) {
-      int c = creads[(int64_t)t * R + r];
+      int c = next;
+      // the next row's character is on its way while this row's step waits
+      // for its sector
+      if (t + 1 < max_len) next = __ldcs(creads + (int64_t)(t + 1) * R + r);
       int e = kSent;
       if (c >= 1 && c <= kNC) {
-        int2 row = __ldg(cpl + (int64_t)(a >> 5) * kNC + (c - 1));
-        uint32_t low = (uint32_t)((1ull << (a & 31)) - 1ull);
-        a = sC[c] + row.x + __popc((uint32_t)row.y & low);
+        a = walk_step(planes, sC, a, c);
         e = a;
         ++live;
       }
-      emits[(int64_t)t * R + r] = e;
+      __stcs(emits + (int64_t)t * R + r, e);
     }
   }
 
@@ -78,19 +126,65 @@ walk_emit_kernel(const int2* __restrict__ cpl, const int* __restrict__ C,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+walk_planes_build_kernel(const uint4* __restrict__ rec, int64_t nblk,
+                         int64_t n_sb, uint32_t* __restrict__ planes) {
+  int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t sb = g >> 3;
+  int slot = (int)(g & 7);
+  if (sb >= n_sb) return;
+  uint32_t out[kNC] = {0u, 0u, 0u, 0u, 0u};
+  if (slot == 0) {
+    const uint4* row = rec + sb * kWords * 4;      // block 7*sb < nblk
+    uint4 o0 = __ldg(row), o1 = __ldg(row + 1);
+    out[0] = o0.y; out[1] = o0.z; out[2] = o0.w; out[3] = o1.x; out[4] = o1.y;
+  } else {
+    int64_t blk = sb * kWords + (slot - 1);
+    if (blk < nblk) {
+      const uint4* row = rec + blk * 4;
+      uint4 s0 = __ldg(row + 2), s1 = __ldg(row + 3);
+      const uint32_t w[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          uint32_t sym = (w[k] >> (8 * b)) & 0xFFu;
+#pragma unroll
+          for (int c = 0; c < kNC; ++c)
+            out[c] |= sym == (uint32_t)(c + 1) ? (1u << (4 * k + b)) : 0u;
+        }
+      }
+    }
+  }
+  uint32_t* dst = planes + sb * (kNC * 8) + slot;
+#pragma unroll
+  for (int c = 0; c < kNC; ++c) dst[c * 8] = out[c];
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int walk_emit_launch(const void* cpl, const void* C, const void* creads,
+// Each returns cudaGetLastError() after the launch (0 on success).
+
+int walk_emit_launch(const void* planes, const void* C, const void* creads,
                      int max_len, int64_t R, int a0, void* emits,
                      void* n_live, void* stream) {
   if (R <= 0 || max_len <= 0) return 0;
-  int64_t blocks = (R + kThreads - 1) / kThreads;
-  walk_emit_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int2*)cpl, (const int*)C, (const int8_t*)creads, max_len, R, a0,
-      (int*)emits, (unsigned long long*)n_live);
+  unsigned blocks = (unsigned)((R + kThreads - 1) / kThreads);
+  walk_emit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)planes, (const int*)C, (const int8_t*)creads, max_len, R,
+      a0, (int*)emits, (unsigned long long*)n_live);
+  return (int)cudaGetLastError();
+}
+
+int walk_planes_build_launch(const void* rec, int64_t nblk, void* planes,
+                             int64_t n_sb, void* stream) {
+  if (n_sb <= 0) return 0;
+  int64_t blocks = (n_sb * 8 + kThreads - 1) / kThreads;
+  walk_planes_build_kernel<<<(unsigned)blocks, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const uint4*)rec, nblk, n_sb, (uint32_t*)planes);
   return (int)cudaGetLastError();
 }
 

@@ -143,10 +143,15 @@ STREAMED_PROBE = Kernel("streamed_probe", "streamed_probe.cu",
 WALK_EMIT = Kernel("walk_emit", "walk.cu",
                    [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P],
                    "walk_error_string")
+WALK_PLANES_BUILD = Kernel("walk_planes_build", "walk.cu",
+                           [_P, _I64, _P, _I64, _P], "walk_error_string")
 DECODE = Kernel("decode", "decode.cu",
-                [_P, _P, _I64, _I64, _I32, _I64, _P, _P],
+                [_P, _P, _I64, _I64, _I32, _I64, _P, _P, _P],
                 "decode_error_string")
-KERNELS = (STREAMED_PROBE, WALK_EMIT, DECODE)
+DECODE_ROWS_BUILD = Kernel("decode_rows_build", "decode.cu",
+                           [_P, _I64, _P, _P], "decode_error_string")
+KERNELS = (STREAMED_PROBE, WALK_EMIT, WALK_PLANES_BUILD, DECODE,
+           DECODE_ROWS_BUILD)
 
 
 def reset_launches() -> None:

@@ -4,7 +4,7 @@ Port of bwtmerge_tpu/models/kfold.py.  The left fold of pairwise merges is
 re-derived so that no intermediate merged index is built (ops/kfold_torch.py
 for the math):
 
-  device  one resident cplane index per piece; every piece after the first
+  device  one resident walk-plane index per piece; every piece after the first
           is decoded on the device (kernel K3) and walked through each
           earlier piece (kernel K2); the summed lanes are sorted and reduced
           to (value, count) pairs per lane block
@@ -85,9 +85,9 @@ class _FoldDevice:
 
     def add_piece(self, payload, counts: np.ndarray, need_creads: bool,
                   need_index: bool):
-        """Upload a piece, derive its cplanes when later pieces walk through
-        it, and decode its reads on the device when it walks.  The record
-        table is dropped on return.
+        """Upload a piece, derive its walk planes when later pieces walk
+        through it, and decode its reads on the device when it walks.  The
+        record table is dropped on return.
 
         payload: RunArrays (in-memory pieces) or ("nib", nibbles, size) from
         the chunked file loader."""

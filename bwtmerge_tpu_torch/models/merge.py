@@ -349,13 +349,13 @@ def _build_ra(a: FMI, b: FMI, config: MergeConfig) -> _PrimedStream:
     first chunk exists before any output is written."""
     from ..ops.ra_stream import blocked_walk
     from ..ops.search_torch import blocked_search
-    from ..ops.walk_torch import build_cplanes
+    from ..ops.walk_torch import build_walk_planes
 
     creads = walk_creads(b, config)
     index = a.device_index(config.device)
     if creads is not None:
         max_len, r_total = creads.shape
-        ra = blocked_walk(index, build_cplanes(index.rec), creads,
+        ra = blocked_walk(index, build_walk_planes(index.rec), creads,
                           _n_blocks(config, b, r_total, max_len),
                           a.sequences())
     else:

@@ -11,7 +11,12 @@ last row belong to reads longer than the cap.
 `decode_creads_device` is the wrapper of the hand-written CUDA kernel K3
 (csrc/decode.cu); `decode_creads_plain` is its plain PyTorch version, which
 the wrapper takes for CPU tensors.  Both fill a caller-zeroed creads buffer
-in place (one buffer for all lane slabs, no concatenation).
+in place (one buffer for all lane slabs, no concatenation).  K3 reads the
+decode rows, one 32-byte row per block (five occ counts and three bit-planes
+of the block's symbols): `build_decode_rows` is the wrapper of the kernel
+that builds them, in the same source, `build_decode_rows_plain` its plain
+version and `decode_rows_step` one LF step over them in plain PyTorch.  The plain decode
+goes through the record table (`LF_step`), independent of the rows.
 """
 
 from __future__ import annotations
@@ -21,9 +26,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import DECODE
-from .rank_torch import LANES, REC, DeviceFMIndex
-from .walk_torch import WALK_MAX_LEN
+from ..kernels import DECODE, DECODE_ROWS_BUILD
+from .rank_torch import (BLK, LANES, SIGMA, DeviceFMIndex, check_rec,
+                         unpack_symbols)
+from .walk_torch import WALK_MAX_LEN, _int32_wrap, _popcount32
+
+ROW_WORDS = 8    # int32 words per decode row: 5 occ counts + 3 bit-planes
+N_OCC = SIGMA - 1
 
 DECODE_SLAB_LANES = 4 * 1024 * 1024   # lanes per decode call
 
@@ -33,6 +42,60 @@ def _pow2_at_least(n: int, minimum: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def build_decode_rows_plain(rec: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the decode rows: int32[NBLK, 8], row b =
+    [occ of c = 1..5 before block b | planes 0..2], bit j of plane k = bit
+    k of the symbol at position 32*b + j."""
+    syms = unpack_symbols(rec[:, LANES:])                      # [NBLK, 32]
+    bit = torch.ones(BLK, dtype=torch.int64, device=rec.device) << torch.arange(
+        BLK, device=rec.device)
+    planes = [_int32_wrap((((syms >> k) & 1) * bit).sum(dim=1))
+              for k in range(ROW_WORDS - N_OCC)]
+    return torch.cat([rec[:, 1:1 + N_OCC], torch.stack(planes, dim=1)],
+                     dim=1).contiguous()
+
+
+def build_decode_rows(rec: torch.Tensor) -> torch.Tensor:
+    """The decode's table from the record table: int32[NBLK, 8] (see
+    build_decode_rows_plain).  CUDA tensors launch decode_rows_build of
+    csrc/decode.cu; CPU tensors take the plain version."""
+    check_rec(rec, "build_decode_rows")
+    if rec.device.type == "cpu":
+        return build_decode_rows_plain(rec)
+    if rec.device.type != "cuda":
+        raise ValueError(f"build_decode_rows: unsupported device {rec.device}")
+    if not rec.is_contiguous() or rec.data_ptr() % 16:
+        raise ValueError("build_decode_rows needs a contiguous, 16-byte "
+                         "aligned rec")
+    rows = torch.empty((rec.shape[0], ROW_WORDS), dtype=torch.int32,
+                       device=rec.device)
+    with torch.cuda.device(rec.device):
+        DECODE_ROWS_BUILD.launch(rec.data_ptr(), rec.shape[0],
+                                 rows.data_ptr())
+    return rows
+
+
+def decode_rows_step(rows: torch.Tensor, C: torch.Tensor, p: torch.Tensor):
+    """One step of K3 in plain PyTorch: (LF(p), BWT[p]) as int64[Q] from the
+    decode rows alone, for positions p holding a symbol 0..5 (LF of an
+    endmarker position is C[0] plus the endmarkers before the block's
+    start, which the rows do not hold: only its symbol is meaningful)."""
+    p = p.to(torch.int64)
+    row = rows[p >> 5].to(torch.int64) & 0xFFFFFFFF            # [Q, 8]
+    off = p & (BLK - 1)
+    bits = [(row[:, N_OCC + k] >> off) & 1 for k in range(3)]
+    sym = bits[0] | (bits[1] << 1) | (bits[2] << 2)
+    match = torch.full_like(p, 0xFFFFFFFF)
+    for k in range(3):
+        plane = row[:, N_OCC + k]
+        match = match & torch.where(bits[k] == 1, plane, plane ^ 0xFFFFFFFF)
+    before = _popcount32(match & ((torch.ones_like(p) << off) - 1))
+    occ = torch.cat([torch.zeros_like(row[:, :1]), row[:, :N_OCC],
+                     torch.zeros_like(row[:, :2])], dim=1)     # by symbol
+    lf = C.to(torch.int64)[sym] + occ.gather(1, sym[:, None])[:, 0] + before
+    return lf, sym
 
 
 def decode_creads_plain(index: DeviceFMIndex, creads: torch.Tensor,
@@ -56,15 +119,16 @@ def decode_creads_plain(index: DeviceFMIndex, creads: torch.Tensor,
 
 
 def decode_creads_device(index: DeviceFMIndex, creads: torch.Tensor,
-                         lane0: int = 0) -> torch.Tensor:
+                         lane0: int = 0,
+                         rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode lanes lane0 .. lane0+W-1 into creads int8[cap, W] (zeroed by
     the caller, rows lane-contiguous); returns the lanes alive after the
-    last row (int64 scalar tensor).  CUDA tensors launch kernel K3; CPU
-    tensors take decode_creads_plain."""
+    last row (int64 scalar tensor).  CUDA tensors launch kernel K3 over
+    `rows`, the index's decode rows (built here when not given; a caller
+    with several slabs or caps builds them once); CPU tensors take
+    decode_creads_plain."""
     rec = index.rec
-    if rec.dtype != torch.int32 or rec.dim() != 2 or rec.shape[1] != REC:
-        raise ValueError(f"rec must be int32[NBLK, {REC}], got "
-                         f"{rec.dtype}{list(rec.shape)}")
+    check_rec(rec, "decode")
     if index.C.dtype != torch.int32 or index.C.shape != (LANES + 1,):
         raise ValueError(f"C must be int32[{LANES + 1}]")
     if creads.dtype != torch.int8 or creads.dim() != 2:
@@ -82,13 +146,19 @@ def decode_creads_device(index: DeviceFMIndex, creads: torch.Tensor,
         raise ValueError("decode needs a contiguous record table and C")
     if creads.shape[1] > 1 and creads.stride(1) != 1:
         raise ValueError("decode needs lane-contiguous creads rows")
-    if rec.data_ptr() % 16:
-        raise ValueError("decode needs a 16-byte aligned rec")
+    if rows is None:
+        rows = build_decode_rows(rec)
+    if rows.dtype != torch.int32 or rows.shape != (rec.shape[0], ROW_WORDS) \
+            or rows.device != rec.device or not rows.is_contiguous() \
+            or rows.data_ptr() % 32:
+        raise ValueError(f"rows must be the index's decode rows, contiguous "
+                         f"32-byte aligned int32[{rec.shape[0]}, "
+                         f"{ROW_WORDS}] on {rec.device}")
     cap, w = creads.shape
     n_alive = torch.zeros((), dtype=torch.int64, device=rec.device)
     if cap and w:
         with torch.cuda.device(rec.device):
-            DECODE.launch(rec.data_ptr(), index.C.data_ptr(), int(lane0), w,
+            DECODE.launch(rows.data_ptr(), index.C.data_ptr(), int(lane0), w,
                           cap, creads.stride(0), creads.data_ptr(),
                           n_alive.data_ptr())
     return n_alive
@@ -107,13 +177,16 @@ def _decode_capped(index: DeviceFMIndex, sequences: int, cap: int,
     None once a cap of max_len_cap or more still does not hold every read.
     The same cap sequence as walk_jax.decode_creads(_dev).  Lanes go in
     slabs of DECODE_SLAB_LANES, each written into its columns of one
-    buffer; rows are trimmed to the longest read."""
+    buffer; rows are trimmed to the longest read.  On a card the decode
+    rows are built once, before the first cap, and freed on return."""
     top = _pow2_at_least(max_len_cap, 128)
     slab = DECODE_SLAB_LANES
+    rows = (build_decode_rows(index.rec) if index.device.type == "cuda"
+            else None)
     while True:
         creads = torch.zeros((cap, sequences), dtype=torch.int8,
                              device=index.device)
-        over = [decode_creads_device(index, creads[:, s0:s0 + slab], s0)
+        over = [decode_creads_device(index, creads[:, s0:s0 + slab], s0, rows)
                 for s0 in range(0, sequences, slab)]
         if int(torch.stack(over).sum()) == 0:
             return creads[: rows_used(creads)].contiguous()

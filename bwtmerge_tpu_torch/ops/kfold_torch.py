@@ -4,7 +4,7 @@ Port of bwtmerge_tpu/ops/kfold_jax.py (see its docstring for the math).
 The rank of piece k's suffix s in the accumulated base (pieces 0..k-1) is
 the sum over the earlier pieces l of |{suffixes of piece l <= s}|, and each
 term is one per-read walk of piece k's reads through piece l's resident
-cplane index (the walk kernel K2).  Emission lane (t, r) is the same
+wide planes (the walk kernel K2).  Emission lane (t, r) is the same
 suffix in every walk, so the per-suffix sum is a lane-wise add, followed by
 one sort.
 
@@ -25,7 +25,8 @@ from typing import List
 import numpy as np
 import torch
 
-from .walk_torch import SENT, WALK_BLOCK_EMITS, build_cplanes, walk_emit
+from .walk_torch import (SENT, WALK_BLOCK_EMITS, build_walk_planes,
+                         walk_emit)
 
 DEAD = 2**63 - 1   # dead summed lane: sorts last; 0xFFFFFFFF mod 2^32 (UPAD)
 MAX_FOLD_TOTAL = (1 << 32) - 2   # the host chain is untried beyond 2^32
@@ -33,8 +34,9 @@ MAX_WALK_LANES = WALK_BLOCK_EMITS   # emission lanes per lane block
 
 
 class PieceIndex:
-    """One fold piece resident on the device: cplanes + C (the record table
-    is not kept; the walk only reads cplane rows)."""
+    """One fold piece resident on the device: the walk's wide planes (`cpl`,
+    walk_torch.build_walk_planes) + C (the record table is not kept; the
+    walk only reads plane rows)."""
 
     def __init__(self, cpl: torch.Tensor, C: torch.Tensor, sequences: int,
                  size: int):
@@ -45,7 +47,7 @@ class PieceIndex:
 
     @classmethod
     def from_device_index(cls, idx) -> "PieceIndex":
-        return cls(build_cplanes(idx.rec), idx.C, int(idx.C[1]), idx.size)
+        return cls(build_walk_planes(idx.rec), idx.C, int(idx.C[1]), idx.size)
 
 
 def _walk_raw(piece: PieceIndex, creads: torch.Tensor):

@@ -94,10 +94,12 @@ class BlockedRA:
                 np.concatenate([p[1] for p in parts]))
 
 
-def blocked_walk(index: DeviceFMIndex, cpl: torch.Tensor, creads: np.ndarray,
-                 n_blocks: int, a_sequences: int) -> BlockedRA:
-    """Walk creads int8[max_len, R] (host) in `n_blocks` read blocks on the
-    index's device.  Each block's root share is its read count."""
+def blocked_walk(index: DeviceFMIndex, planes: torch.Tensor,
+                 creads: np.ndarray, n_blocks: int,
+                 a_sequences: int) -> BlockedRA:
+    """Walk creads int8[max_len, R] (host) in `n_blocks` read blocks through
+    the index's wide planes (walk_torch.build_walk_planes) on its device.
+    Each block's root share is its read count."""
     max_len, r_total = creads.shape
     n_blocks = max(1, min(n_blocks, r_total))
     per = -(-r_total // n_blocks)
@@ -105,7 +107,7 @@ def blocked_walk(index: DeviceFMIndex, cpl: torch.Tensor, creads: np.ndarray,
     for b in range(0, r_total, per):
         blk = np.ascontiguousarray(creads[:, b:b + per])
         dev = torch.from_numpy(blk).to(index.device)
-        values, counts = walk_runs(cpl, index.C, dev, a_sequences,
+        values, counts = walk_runs(planes, index.C, dev, a_sequences,
                                    blk.shape[1])
         blocks.append(Block(values, counts))
     return BlockedRA(blocks)

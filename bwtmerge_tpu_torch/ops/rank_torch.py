@@ -137,6 +137,14 @@ def build_rec(nibbles: torch.Tensor, nblk: int) -> torch.Tensor:
     return torch.cat([occ, packed], dim=1).contiguous()
 
 
+def check_rec(rec: torch.Tensor, what: str) -> None:
+    """Raise unless rec is a record table, int32[NBLK >= 1, REC]."""
+    if rec.dtype != torch.int32 or rec.dim() != 2 or rec.shape[1] != REC \
+            or rec.shape[0] < 1:
+        raise ValueError(f"{what}: rec must be int32[NBLK, {REC}], got "
+                         f"{rec.dtype}{list(rec.shape)}")
+
+
 def unpack_symbols(words: torch.Tensor) -> torch.Tensor:
     """Packed symbol words int32[N, 8] -> int64[N, BLK] symbols in position
     order (word w holds positions 4w..4w+3, LSB first)."""

@@ -5,26 +5,35 @@ emissions are the rank-array multiset).  Every read of B is walked
 backward through A only: lane r starts at a = A.sequences() and at each
 character c of the read, counted from its end, steps to
 a = C[c] + rank_A(a, c) and emits a.  The rank of a KNOWN character is one
-8-byte row of the per-character planes (build_cplanes).
+32-byte row of the wide planes (build_walk_planes): the occ count before a
+super-block of 224 positions and seven 32-bit masks of its positions
+holding the character.
 
 `walk_emit` is the wrapper of the hand-written CUDA kernel K2
 (csrc/walk.cu), which replaces walk_jax._walk_emit; `walk_emit_plain` is
 its plain PyTorch version, which the wrapper takes for CPU tensors.
-`walk_runs` turns one block's emissions into a sorted-unique (value,
-count) rank array on the device, with the root run added.
+`build_walk_planes` is the wrapper of the kernel that builds the table, in
+the same source, `build_walk_planes_plain` its plain version.
+`build_cplanes` and `rank_known_char` are the bit-identical counterparts of the JAX package's
+narrow planes (one 8-byte row per block and character); nothing on the
+card's path calls them.  `walk_runs` turns one block's emissions into a
+sorted-unique (value, count) rank array on the device, with the root run
+added.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import WALK_EMIT
-from .rank_torch import BLK, LANES, SENT, SIGMA, unpack_symbols
+from ..kernels import WALK_EMIT, WALK_PLANES_BUILD
+from .rank_torch import BLK, LANES, SENT, SIGMA, check_rec, unpack_symbols
 
 NC = SIGMA - 1        # walked characters 1..SIGMA-1 (endmarker never walked)
 WALK_BLOCK_EMITS = 1 << 28   # emission lanes per walk launch (~10 GB of walk,
                              # unique and sort temporaries)
 WALK_MAX_LEN = 1 << 14       # longest read the walk takes (as the JAX path)
+PLANE_WORDS = 7              # mask words per wide-plane row
+SUPER = PLANE_WORDS * BLK    # positions per row: 224, one 32-byte sector
 
 
 def _int32_wrap(x: torch.Tensor) -> torch.Tensor:
@@ -59,7 +68,7 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 def rank_known_char(cpl: torch.Tensor, C: torch.Tensor, a: torch.Tensor,
                     cc: torch.Tensor) -> torch.Tensor:
     """LF(a, cc) = C[cc] + rank(a, cc) for known characters cc in [1, NC]:
-    one cplane row per lane.  int64[R]."""
+    one narrow-plane row per lane.  int64[R]."""
     a = a.to(torch.int64)
     cc = cc.to(torch.int64)
     row = cpl[(a >> 5) * NC + (cc - 1)].to(torch.int64)        # [R, 2]
@@ -68,10 +77,74 @@ def rank_known_char(cpl: torch.Tensor, C: torch.Tensor, a: torch.Tensor,
     return C.to(torch.int64)[cc] + row[:, 0] + _popcount32(mask & low)
 
 
-def walk_emit_plain(cpl: torch.Tensor, C: torch.Tensor, creads: torch.Tensor,
-                    a_sequences: int):
-    """Plain PyTorch version of the walk: (emits int32[max_len*R] with
-    2^31-1 in dead lanes, n_live int64 scalar tensor)."""
+def n_super_blocks(nblk: int) -> int:
+    return -(-nblk // PLANE_WORDS)
+
+
+def build_walk_planes_plain(rec: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the wide planes: int32[NSB, NC, 8] with
+    NSB = ceil(NBLK / 7); row (sb, c-1) = [occ of c before position 224*sb,
+    m_0 .. m_6], bit k of m_w set iff position 224*sb + 32*w + k holds c
+    (zero past the record table)."""
+    nblk = rec.shape[0]
+    n_sb = n_super_blocks(nblk)
+    narrow = build_cplanes(rec).view(nblk, NC, 2)
+    masks = torch.zeros((n_sb * PLANE_WORDS, NC), dtype=torch.int32,
+                        device=rec.device)
+    masks[:nblk] = narrow[:, :, 1]
+    planes = torch.empty((n_sb, NC, 1 + PLANE_WORDS), dtype=torch.int32,
+                         device=rec.device)
+    planes[:, :, 0] = narrow[::PLANE_WORDS, :, 0]
+    planes[:, :, 1:] = masks.view(n_sb, PLANE_WORDS, NC).permute(0, 2, 1)
+    return planes
+
+
+def build_walk_planes(rec: torch.Tensor) -> torch.Tensor:
+    """The walk's table from the record table: wide planes
+    int32[NSB, NC, 8] (see build_walk_planes_plain).  CUDA tensors launch
+    walk_planes_build of csrc/walk.cu; CPU tensors take the plain
+    version."""
+    check_rec(rec, "build_walk_planes")
+    if rec.device.type == "cpu":
+        return build_walk_planes_plain(rec)
+    if rec.device.type != "cuda":
+        raise ValueError(f"build_walk_planes: unsupported device {rec.device}")
+    if not rec.is_contiguous() or rec.data_ptr() % 16:
+        raise ValueError("build_walk_planes needs a contiguous, 16-byte "
+                         "aligned rec")
+    nblk = rec.shape[0]
+    n_sb = n_super_blocks(nblk)
+    planes = torch.empty((n_sb, NC, 1 + PLANE_WORDS), dtype=torch.int32,
+                         device=rec.device)
+    with torch.cuda.device(rec.device):
+        WALK_PLANES_BUILD.launch(rec.data_ptr(), nblk, planes.data_ptr(),
+                                 n_sb)
+    return planes
+
+
+def rank_wide(planes: torch.Tensor, C: torch.Tensor, a: torch.Tensor,
+              cc: torch.Tensor) -> torch.Tensor:
+    """LF(a, cc) = C[cc] + rank(a, cc) for known characters cc in [1, NC]
+    over the wide planes: one 32-byte row per lane.  int64[R]."""
+    a = a.to(torch.int64)
+    cc = cc.to(torch.int64)
+    sb = a // SUPER
+    off = a - sb * SUPER
+    row = planes[sb, cc - 1].to(torch.int64)                   # [R, 8]
+    masks = row[:, 1:] & 0xFFFFFFFF                            # uint32 bits
+    word = (off >> 5)[:, None]
+    low = ((torch.ones_like(a) << (off & (BLK - 1))) - 1)[:, None]
+    w = torch.arange(PLANE_WORDS, device=a.device)[None, :]
+    take = torch.where(w < word, 0xFFFFFFFF, torch.where(w == word, low, 0))
+    return (C.to(torch.int64)[cc] + row[:, 0]
+            + _popcount32(masks & take).sum(dim=1))
+
+
+def walk_emit_plain(planes: torch.Tensor, C: torch.Tensor,
+                    creads: torch.Tensor, a_sequences: int):
+    """Plain PyTorch version of the walk over the wide planes: (emits
+    int32[max_len*R] with 2^31-1 in dead lanes, n_live int64 scalar
+    tensor)."""
     max_len, r = creads.shape
     a = torch.full((r,), int(a_sequences), dtype=torch.int64,
                    device=creads.device)
@@ -80,52 +153,54 @@ def walk_emit_plain(cpl: torch.Tensor, C: torch.Tensor, creads: torch.Tensor,
     for t in range(max_len):
         c = creads[t].to(torch.int64)
         alive = (c >= 1) & (c <= NC)
-        child = rank_known_char(cpl, C, a, c.clamp(1, NC))
+        child = rank_wide(planes, C, a, c.clamp(1, NC))
         a = torch.where(alive, child, a)
         emits[t] = torch.where(alive, child, SENT).to(torch.int32)
         n_live += alive.sum()
     return emits.reshape(-1), n_live
 
 
-def walk_emit(cpl: torch.Tensor, C: torch.Tensor, creads: torch.Tensor,
+def walk_emit(planes: torch.Tensor, C: torch.Tensor, creads: torch.Tensor,
               a_sequences: int):
     """The walk over creads int8[max_len, R] (characters from each read's
-    end, 0 past it): (emits int32[max_len*R], n_live int64 scalar tensor).
-    CUDA tensors launch kernel K2; CPU tensors take walk_emit_plain."""
-    if cpl.dtype != torch.int32 or cpl.dim() != 2 or cpl.shape[1] != 2 \
-            or cpl.shape[0] % NC:
-        raise ValueError(f"cpl must be int32[NBLK*{NC}, 2], got "
-                         f"{cpl.dtype}{list(cpl.shape)}")
+    end, 0 past it) through the wide planes of build_walk_planes: (emits
+    int32[max_len*R], n_live int64 scalar tensor).  CUDA tensors launch
+    kernel K2; CPU tensors take walk_emit_plain."""
+    if planes.dtype != torch.int32 or planes.dim() != 3 \
+            or planes.shape[1:] != (NC, 1 + PLANE_WORDS):
+        raise ValueError(f"planes must be int32[NSB, {NC}, "
+                         f"{1 + PLANE_WORDS}], got "
+                         f"{planes.dtype}{list(planes.shape)}")
     if C.dtype != torch.int32 or C.shape != (LANES + 1,):
         raise ValueError(f"C must be int32[{LANES + 1}]")
     if creads.dtype != torch.int8 or creads.dim() != 2:
         raise ValueError(f"creads must be int8[max_len, R], got "
                          f"{creads.dtype}{list(creads.shape)}")
-    if not (cpl.device == C.device == creads.device):
+    if not (planes.device == C.device == creads.device):
         raise ValueError("walk_emit: tensors on different devices")
-    if not 0 <= a_sequences < SENT:
+    if not 0 <= a_sequences < min(SENT, planes.shape[0] * SUPER):
         raise ValueError(f"a_sequences {a_sequences} out of range")
-    if cpl.device.type == "cpu":
-        return walk_emit_plain(cpl, C, creads, a_sequences)
-    if cpl.device.type != "cuda":
-        raise ValueError(f"walk_emit: unsupported device {cpl.device}")
-    if not (cpl.is_contiguous() and C.is_contiguous()
+    if planes.device.type == "cpu":
+        return walk_emit_plain(planes, C, creads, a_sequences)
+    if planes.device.type != "cuda":
+        raise ValueError(f"walk_emit: unsupported device {planes.device}")
+    if not (planes.is_contiguous() and C.is_contiguous()
             and creads.is_contiguous()):
         raise ValueError("walk_emit needs contiguous tensors")
-    if cpl.data_ptr() % 8:
-        raise ValueError("walk_emit needs an 8-byte aligned cpl")
+    if planes.data_ptr() % 32:
+        raise ValueError("walk_emit needs 32-byte aligned planes")
     max_len, r = creads.shape
-    emits = torch.empty(max_len * r, dtype=torch.int32, device=cpl.device)
-    n_live = torch.zeros((), dtype=torch.int64, device=cpl.device)
+    emits = torch.empty(max_len * r, dtype=torch.int32, device=planes.device)
+    n_live = torch.zeros((), dtype=torch.int64, device=planes.device)
     if max_len and r:
-        with torch.cuda.device(cpl.device):
-            WALK_EMIT.launch(cpl.data_ptr(), C.data_ptr(), creads.data_ptr(),
-                             max_len, r, int(a_sequences), emits.data_ptr(),
-                             n_live.data_ptr())
+        with torch.cuda.device(planes.device):
+            WALK_EMIT.launch(planes.data_ptr(), C.data_ptr(),
+                             creads.data_ptr(), max_len, r, int(a_sequences),
+                             emits.data_ptr(), n_live.data_ptr())
     return emits, n_live
 
 
-def walk_runs(cpl: torch.Tensor, C: torch.Tensor, creads: torch.Tensor,
+def walk_runs(planes: torch.Tensor, C: torch.Tensor, creads: torch.Tensor,
               a_sequences: int, root_count: int):
     """One read block's rank array on the device: sorted-unique
     (values int64[U], counts int64[U]).
@@ -134,7 +209,7 @@ def walk_runs(cpl: torch.Tensor, C: torch.Tensor, creads: torch.Tensor,
     a_sequences, count root_count = the block's read count) added to the
     same multiset, so an emission equal to a_sequences (c = 1 at rank 0)
     gets the root count added rather than a second entry."""
-    emits, _ = walk_emit(cpl, C, creads, a_sequences)
+    emits, _ = walk_emit(planes, C, creads, a_sequences)
     live = emits[emits != SENT].to(torch.int64)
     root = torch.tensor([a_sequences], dtype=torch.int64, device=live.device)
     values, inverse = torch.unique(torch.cat([live, root]), sorted=True,

@@ -13,10 +13,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    compared for exact equality (all integer) and timed with CUDA events:
    K1 and K2 at the main path's shapes, K1 also at the trie search's (a
    sorted batch of many equal neighbours that ends in queries equal to
-   the size), K3 (the read decode) on the real BWT of 10^6 reads of 1..24
-   characters plus one of 100, past the 64-row cap, with lanes starting
-   at block offsets 0 and 31; the full decode must also give back the
-   generated reads.  Each kernel's bound is computed from these inputs;
+   the size), K2 also with every lane starting at a super-block's edge
+   or at the table's last position, K3
+   (the read decode) on the real BWT of 10^6 reads of 1..24 characters
+   plus one of 100, past the 64-row cap, with lanes starting at block
+   offsets 0 and 31; the full decode must also give back the generated
+   reads.  The kernels that build K2's and K3's tables (walk_planes_build,
+   decode_rows_build) are held against their plain versions on the same
+   record tables.  Each kernel's bound is computed from these inputs;
 4. small exact merge: 20k + 10k random 50 bp reads merged by the port on
    the card (in three read blocks) and by the port's plain numpy
    reference (ops/search_np.py, ops/interleave_np.py); the files must be
@@ -30,16 +34,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the walk's of phase 4.  Then a fold of three pieces, one holding a
    read of 2^14 + 100 characters: the fold must leave for the pairwise
    chain on the trie search and give the numpy reference's bytes;
+   then kernel_times: K2 and its table's build at the two-input main
+   path's own shape (held against their plain versions there too) and
+   over a table that fits the L2, K3 on a third of the positions, the
+   table builds beside build_cplanes (torch ops);
 7. main path, two inputs: bwt_merge A B out -v patterns --device cuda at
    bench.py's medium scale (524k + 262k reads of 50 bp, B with its
    read-text sidecar, 2^18 patterns of 32 bp); it must exit 0 (the -v
    counts agree), the merged symbol counts must equal A's plus B's, and
-   K1 and K2 must have launched during the run;
+   K1, K2 and walk_planes_build must have launched during the run;
 8. main path, k-way fold: bwt_merge P0 P1 P2 P3 out -v patterns --device
    cuda with P0, P1 = A, B above and P2, P3 = 262k-read pieces without
    sidecars (seeds 4 and 5), 67 Mbp over three fold steps; exit 0, merged
-   symbol counts equal to the pieces' sum, and K1 >= 1, K2 >= 6 and
-   K3 >= 3 launches during the run;
+   symbol counts equal to the pieces' sum, and K1 >= 1, K2 >= 6, K3 >= 3
+   and each table's build kernel >= 3 launches during the run;
 9. main path, trie: bwt_merge A B out -v patterns --search trie --device
    cuda on the pair of phase 7; exit 0, merged symbol counts equal to A's
    plus B's, the output byte-identical to phase 7's, and K1 launched at
@@ -86,6 +94,8 @@ K1_POSITIONS = 100_000_000
 K1_QUERIES = 1 << 20
 K1_SENTINELS = 4096
 K2_SHAPE = (50, 1 << 20)
+K2_SMALL_POSITIONS = 10_000_000   # a walk table that fits the card's L2
+K3_SHORT_MAX_LEN = 6              # reads of the decode's small-table fixture
 N_PATTERNS = 1 << 18
 PATTERN_LEN = 32
 
@@ -138,6 +148,13 @@ def mixed_lengths(m: int, seed: int) -> np.ndarray:
     lens = np.random.default_rng(seed).integers(1, K3_MAX_LEN + 1, size=m)
     lens[m // 2] = K3_LONG
     return lens
+
+
+def short_lengths(m: int, seed: int) -> np.ndarray:
+    """Read lengths of the decode's small-table fixture: 1..K3_SHORT_MAX_LEN
+    (as many lanes as the decode fixture over a third of its positions)."""
+    return np.random.default_rng(seed).integers(1, K3_SHORT_MAX_LEN + 1,
+                                                size=m)
 
 
 def long_lengths(m: int, seed: int) -> np.ndarray:
@@ -214,7 +231,10 @@ class Fixtures:
                  ("k3", build_mixed_fixture, os.path.join(
                      CACHE, f"decode_{K3_READS}.sga"), K3_READS, 31),
                  ("b", build_fixture, os.path.join(medium, "b.sga"),
-                  MEDIUM[1], 2, True)]
+                  MEDIUM[1], 2, True),
+                 ("k3_short", build_mixed_fixture, os.path.join(
+                     CACHE, f"decode_short_{K3_READS}.sga"), K3_READS, 33,
+                  short_lengths)]
         jobs += [(f"p{k + 2}", build_fixture,
                   os.path.join(fold, f"p{k + 2}_{m}_{seed}.sga"), m, seed,
                   False) for k, (m, seed) in enumerate(FOLD_EXTRA)]
@@ -270,6 +290,27 @@ def build_all() -> dict:
     build_library()
     t2 = time.monotonic()
     return {"kernels_s": t1 - t0, "native_s": t2 - t1}
+
+
+def time_ms_cold(fn, device, iters: int = 10,
+                 fill_bytes: int = 256 << 20) -> float:
+    """Mean milliseconds per call when 256 MB are written through the L2
+    before each call: what a caller pays whose last kernel was another."""
+    import torch
+
+    fill = torch.empty(fill_bytes, dtype=torch.uint8, device=device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        fill.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def time_ms(fn, device, iters: int = 20) -> float:
@@ -349,6 +390,36 @@ def probe_bound(rec, q, size: int) -> dict:
     return bound(n_bytes, int(live.numel()) * BLK * LANES * 2)
 
 
+def walk_bound(creads, steps: int, planes, nblk: int) -> dict:
+    """K2's bound: creads read (1 B a cell), emits written (4 B a cell), and
+    one 32 B plane row per live lane-step, or the whole of the planes where
+    that is less.  Operations: seven masks and popcounts and two adds a
+    live step.  bound_ms_narrow_table is the same with the table the kernel
+    read before it had the wide planes (8 B a step, or 1.25 B a position):
+    what its earlier times were held against."""
+    out = bound(creads.numel() * 5 + min(steps * 32, planes.numel() * 4),
+                steps * 16)
+    out["bound_ms_narrow_table"] = bound(
+        creads.numel() * 5 + min(steps * 8, nblk * planes.shape[1] * 8),
+        steps * 6)["bound_ms"]
+    return out
+
+
+def decode_bound(creads, steps: int, rows) -> dict:
+    """K3's bound: creads written (1 B a cell) and one 32 B decode row per
+    live lane-step (each read's characters, capped, and its endmarker), or
+    the whole of the rows where that is less.  Operations: some fifteen a
+    live step.  bound_ms_record_table is the same with the 64 B records
+    the kernel read before it had the decode rows: what its earlier times
+    were held against."""
+    out = bound(creads.numel() + min(steps * 32, rows.numel() * 4),
+                steps * 15)
+    out["bound_ms_record_table"] = bound(
+        creads.numel() + min(steps * 64, rows.numel() * 8),
+        steps * 64)["bound_ms"]
+    return out
+
+
 def random_index(n_pos: int, device, seed: int):
     """A DeviceFMIndex over n_pos random symbols 0..5, built on the device
     from the symbols themselves (a probe needs no valid BWT)."""
@@ -371,6 +442,101 @@ def random_index(n_pos: int, device, seed: int):
                          size=n_pos, n_runs=0)
 
 
+def random_creads(shape, gen, device):
+    """Walk-layout reads int8[max_len, R] of random lengths 1..max_len and
+    random characters 1..5, 0 past each read's start."""
+    import torch
+
+    max_len, r = shape
+    lens = torch.randint(1, max_len + 1, (r,), generator=gen, device=device)
+    chars = torch.randint(1, 6, (max_len, r), generator=gen, device=device)
+    rows = torch.arange(max_len, device=device)[:, None]
+    return torch.where(rows < lens[None, :], chars, 0).to(torch.int8)
+
+
+def kernel_times(device, fixtures: Fixtures) -> dict:
+    """K2 and K3 timed alone, with their tables' builds: K2 at K2_SHAPE over
+    random indexes of K2_SMALL_POSITIONS (a table that fits the L2) and
+    K1_POSITIONS (one that does not), and at the two-input main path's
+    shape (the medium A's index, B's reads), there held against the plain
+    versions and also timed with the L2 filled before each call; K3 on the
+    decode fixture and on as many reads of 1..K3_SHORT_MAX_LEN characters (a
+    third of the positions); picoseconds per live step beside each."""
+    import torch
+
+    import bwtmerge_tpu_torch as port
+    from bwtmerge_tpu_torch.formats import read_bwt
+    from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
+                                                     decode_creads_device)
+    from bwtmerge_tpu_torch.ops.rank_torch import DeviceFMIndex
+    from bwtmerge_tpu_torch.ops.walk_torch import (build_cplanes,
+                                                   build_walk_planes,
+                                                   build_walk_planes_plain,
+                                                   walk_emit, walk_emit_plain)
+
+    out = {}
+
+    def walk_case(idx, creads, main_path=False):
+        planes = build_walk_planes(idx.rec)
+        a0 = int(idx.C[1])
+        steps = int((creads > 0).sum())
+        run = lambda: walk_emit(planes, idx.C, creads, a0)   # noqa: E731
+        rec = {"positions": idx.size, "creads": list(creads.shape),
+               "steps": steps, "planes_bytes": planes.numel() * 4,
+               "ms": time_ms(run, device),
+               "planes_build_ms": time_ms(
+                   lambda: build_walk_planes(idx.rec), device, 5),
+               "build_cplanes_ms": time_ms(lambda: build_cplanes(idx.rec),
+                                           device, 5),
+               **walk_bound(creads, steps, planes, idx.rec.shape[0])}
+        rec["ps_per_step"] = rec["ms"] * 1e9 / steps
+        if main_path:
+            if not torch.equal(planes, build_walk_planes_plain(idx.rec)):
+                raise AssertionError("walk_planes_build differs from its "
+                                     "plain version on the medium A's index")
+            e_got, n_got = run()
+            e_want, n_want = walk_emit_plain(planes, idx.C, creads, a0)
+            if not (torch.equal(e_got, e_want) and int(n_got) == int(n_want)):
+                raise AssertionError("walk_emit differs from its plain "
+                                     "version at the main path's shape")
+            rec["ms_l2_filled"] = time_ms_cold(run, device)
+        return rec
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    creads = random_creads(K2_SHAPE, gen, device)
+    for n_pos in (K2_SMALL_POSITIONS, K1_POSITIONS):
+        out[f"walk_random_{n_pos}"] = walk_case(
+            random_index(n_pos, device, 7), creads)
+    del creads
+    a = port.load_fmi(fixtures.get("a"), "sga")
+    b = port.load_fmi(fixtures.get("b"), "sga")
+    out["walk_main_path"] = walk_case(
+        a.device_index(device), torch.from_numpy(b.creads()).to(device),
+        main_path=True)
+
+    for key, lengths, seed in (("k3", mixed_lengths, 31),
+                               ("k3_short", short_lengths, 33)):
+        runs, _, _ = read_bwt(fixtures.get(key), "sga")
+        idx = DeviceFMIndex.build(runs, runs.counts(6), device)
+        m = int(idx.C[1])
+        steps = int(np.minimum(lengths(m, seed) + 1, K3_CAP).sum())
+        buf = torch.zeros((K3_CAP, m), dtype=torch.int8, device=device)
+        rows = build_decode_rows(idx.rec)
+        rec = {"positions": idx.size, "creads": list(buf.shape),
+               "steps": steps, "rows_bytes": rows.numel() * 4,
+               "ms": time_ms(lambda: decode_creads_device(idx, buf,
+                                                          rows=rows), device),
+               "ms_with_rows_build": time_ms(
+                   lambda: decode_creads_device(idx, buf), device),
+               "rows_build_ms": time_ms(lambda: build_decode_rows(idx.rec),
+                                        device),
+               **decode_bound(buf, steps, rows)}
+        rec["ps_per_step"] = rec["ms"] * 1e9 / steps
+        out[f"decode_{key}"] = rec
+    log(f"kernel times: {json.dumps(out)}")
+    return out
+
+
 def check_kernels(device, n_pos: int, n_q: int, n_sent: int,
                   walk_shape, seed: int = 7) -> list:
     """Each kernel's wrapper against its plain version on the same device
@@ -379,8 +545,11 @@ def check_kernels(device, n_pos: int, n_q: int, n_sent: int,
 
     from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
                                                       streamed_probe_plain)
-    from bwtmerge_tpu_torch.ops.walk_torch import (build_cplanes, walk_emit,
-                                                   walk_emit_plain)
+    from bwtmerge_tpu_torch.ops.rank_torch import BLK
+    from bwtmerge_tpu_torch.ops.walk_torch import (NC, SUPER, build_cplanes,
+                                                   build_walk_planes,
+                                                   build_walk_planes_plain,
+                                                   walk_emit, walk_emit_plain)
 
     idx = random_index(n_pos, device, seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -433,45 +602,83 @@ def check_kernels(device, n_pos: int, n_q: int, n_sent: int,
             f"{distinct} distinct + 17 equal to the size: equal, {ms:.4f} ms, "
             f"bound {probe_bound(idx.rec, qt, idx.size)['bound_ms']:.4f} ms")
 
-    max_len, r = walk_shape
-    cpl = build_cplanes(idx.rec)
-    lens = torch.randint(1, max_len + 1, (r,), generator=gen, device=device)
-    chars = torch.randint(1, 6, (max_len, r), generator=gen, device=device)
-    rows = torch.arange(max_len, device=device)[:, None]
-    creads = torch.where(rows < lens[None, :], chars, 0).to(torch.int8)
+    # the walk's table: its build kernel against its plain version
+    planes = build_walk_planes(idx.rec)
+    planes_want = build_walk_planes_plain(idx.rec)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    err = int((planes.to(torch.int64) - planes_want.to(torch.int64)
+               ).abs().max())
+    if not torch.equal(planes, planes_want):
+        raise AssertionError(f"walk_planes_build differs from its plain "
+                             f"version (max abs err {err})")
+    del planes_want
+    # its bound: the symbol half of every record and the occ half of every
+    # seventh read (32 B each), the planes written once; a compare and an or
+    # per position and character
+    kb = {"name": "walk_planes_build", "route": "cuda",
+          "source": "bwtmerge_tpu_torch/csrc/walk.cu",
+          "replaces": "bwtmerge_tpu/ops/walk_jax.py:99",
+          "max_abs_err": err,
+          "ms": time_ms(lambda: build_walk_planes(idx.rec), device),
+          "plain_ms": time_ms(lambda: build_walk_planes_plain(idx.rec),
+                              device, 3),
+          "narrow_planes_torch_ms": time_ms(lambda: build_cplanes(idx.rec),
+                                            device, 3),
+          **bound((idx.rec.shape[0] + planes.shape[0]) * 32
+                  + planes.numel() * 4, idx.rec.shape[0] * BLK * NC * 2)}
+    log(f"walk_planes_build: {n_pos} positions, planes "
+        f"{list(planes.shape)}: equal, {kb['ms']:.4f} ms vs plain "
+        f"{kb['plain_ms']:.4f} ms (build_cplanes "
+        f"{kb['narrow_planes_torch_ms']:.4f} ms), bound "
+        f"{kb['bound_ms']:.4f} ms")
+
+    creads = random_creads(walk_shape, gen, device)
+    lens = (creads > 0).sum(dim=0)
     a0 = int(idx.C[1])
-    e_got, n_got = walk_emit(cpl, idx.C, creads, a0)
-    e_want, n_want = walk_emit_plain(cpl, idx.C, creads, a0)
+    e_want, n_want = walk_emit_plain(planes, idx.C, creads, a0)
+    e_got, n_got = walk_emit(planes, idx.C, creads, a0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     err = int((e_got.to(torch.int64) - e_want.to(torch.int64)).abs().max())
     if not (torch.equal(e_got, e_want) and int(n_got) == int(n_want)):
-        raise AssertionError(f"walk_emit differs from its plain version (max "
-                             f"abs err {err}, n_live {int(n_got)} vs "
-                             f"{int(n_want)})")
-    if int(n_got) != int(lens.sum()):
+        raise AssertionError(
+            f"walk_emit differs from its plain version (max abs err {err}, "
+            f"n_live {int(n_got)} vs {int(n_want)})")
+    if int(n_want) != int(lens.sum()):
         raise AssertionError("walk_emit n_live is not the creads length sum")
-    # K2's bound: creads read (1 B a cell), emits written (4 B a cell), and
-    # one 8 B plane row per live lane-step, or the whole plane table where
-    # that is less.  Operations: mask, popcount and two adds a live step.
-    steps = int(n_got)
+    # every lane starting at one a0: the first and last positions of a
+    # super-block and their neighbours, and the table's last position
+    last = n_pos // SUPER * SUPER
+    short = creads[:4, :1024].contiguous()
+    for a_edge in sorted(x for x in {0, 1, 31, 32, SUPER - 1, SUPER,
+                                     SUPER + 1, 2 * SUPER - 1, 2 * SUPER,
+                                     last - 1, last, n_pos - 1, n_pos}
+                         if 0 <= x <= n_pos):
+        e_got, n_got = walk_emit(planes, idx.C, short, a_edge)
+        e_ref, n_ref = walk_emit_plain(planes, idx.C, short, a_edge)
+        if not (torch.equal(e_got, e_ref) and int(n_got) == int(n_ref)):
+            raise AssertionError(f"walk_emit differs from its plain version "
+                                 f"with every lane starting at {a_edge}")
+    steps = int(n_want)
     k2 = {"name": "walk_emit", "route": "cuda",
           "source": "bwtmerge_tpu_torch/csrc/walk.cu",
           "replaces": "bwtmerge_tpu/ops/walk_jax.py:133",
           "max_abs_err": err,
-          "ms": time_ms(lambda: walk_emit(cpl, idx.C, creads, a0), device),
+          "ms": time_ms(lambda: walk_emit(planes, idx.C, creads, a0), device),
           "plain_ms": time_ms(
-              lambda: walk_emit_plain(cpl, idx.C, creads, a0), device),
-          **bound(creads.numel() * 5 + min(steps * 8, cpl.numel() * 4),
-                  steps * 6)}
-    log(f"K2 walk_emit: creads {list(creads.shape)}, {steps} live steps: "
-        f"equal, {k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms, bound "
-        f"{k2['bound_ms']:.4f} ms")
-    return [k1, k2]
+              lambda: walk_emit_plain(planes, idx.C, creads, a0), device, 5),
+          **walk_bound(creads, steps, planes, idx.rec.shape[0])}
+    log(f"K2 walk_emit: creads {list(creads.shape)}, {steps} live steps, "
+        f"planes {planes.numel() * 4} B: equal, also at the super-block "
+        f"edges, {k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms ({k2['bound_ms_narrow_table']:.4f} ms "
+        f"with the narrow table)")
+    return [k1, k2, kb]
 
 
 def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
-                 cap: int = K3_CAP) -> dict:
+                 cap: int = K3_CAP) -> list:
     """K3 against decode_creads_plain on the same device tensors, exact:
     every lane at once, then narrow slabs starting at block offsets 0 and
     31 (lane l starts at BWT row l).  The full decode, with its cap
@@ -480,13 +687,38 @@ def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
 
     from bwtmerge_tpu_torch.formats import read_bwt
     from bwtmerge_tpu_torch.formats.sidecar import creads_layout
-    from bwtmerge_tpu_torch.ops.decode_torch import (decode_creads,
+    from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
+                                                     build_decode_rows_plain,
+                                                     decode_creads,
                                                      decode_creads_device,
                                                      decode_creads_plain)
-    from bwtmerge_tpu_torch.ops.rank_torch import DeviceFMIndex
+    from bwtmerge_tpu_torch.ops.rank_torch import BLK, DeviceFMIndex
 
     runs, _, _ = read_bwt(path, "sga")
     idx = DeviceFMIndex.build(runs, runs.counts(6), device)
+    # the decode's table: its build kernel against its plain version
+    rows = build_decode_rows(idx.rec)
+    rows_want = build_decode_rows_plain(idx.rec)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    err = int((rows.to(torch.int64) - rows_want.to(torch.int64)).abs().max())
+    if not torch.equal(rows, rows_want):
+        raise AssertionError(f"decode_rows_build differs from its plain "
+                             f"version (max abs err {err})")
+    # its bound: the record table read once, the rows written once; a
+    # shift, a mask and an or per position and bit-plane
+    kb = {"name": "decode_rows_build", "route": "cuda",
+          "source": "bwtmerge_tpu_torch/csrc/decode.cu",
+          "replaces": "bwtmerge_tpu/ops/walk_jax.py:272",
+          "max_abs_err": err,
+          "ms": time_ms(lambda: build_decode_rows(idx.rec), device),
+          "plain_ms": time_ms(lambda: build_decode_rows_plain(idx.rec),
+                              device, 5),
+          **bound(idx.rec.numel() * 4 + rows.numel() * 4,
+                  idx.rec.shape[0] * BLK * 3 * 3)}
+    log(f"decode_rows_build: {idx.size} positions, rows {list(rows.shape)}: "
+        f"equal, {kb['ms']:.4f} ms vs plain {kb['plain_ms']:.4f} ms, bound "
+        f"{kb['bound_ms']:.4f} ms")
     err = 0
     for lane0, width in ((0, m), (0, 1000), (31, 1000), (32, 33),
                          (m // 2 - 31, 64), (m - 500, 500)):
@@ -515,24 +747,26 @@ def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
                                                  flat)):
         raise AssertionError("decode did not give back the reads")
 
-    # K3's bound: creads written (1 B a cell) and one 64 B record per live
-    # lane-step (each read's characters, capped, and its endmarker), or the
-    # whole record table where that is less.  Operations: a compare and an
-    # add per position of the record.
     steps = int(np.minimum(lens + 1, cap).sum())
     buf = torch.zeros((cap, m), dtype=torch.int8, device=device)
     rec = {"name": "decode", "route": "cuda",
            "source": "bwtmerge_tpu_torch/csrc/decode.cu",
            "replaces": "bwtmerge_tpu/ops/walk_jax.py:280",
            "max_abs_err": err,
-           "ms": time_ms(lambda: decode_creads_device(idx, buf), device),
-           "plain_ms": time_ms(lambda: decode_creads_plain(idx, buf), device),
-           **bound(buf.numel() + min(steps * 64, idx.rec.numel() * 4),
-                   steps * 64)}
+           "ms": time_ms(lambda: decode_creads_device(idx, buf, rows=rows),
+                         device),
+           "ms_with_rows_build": time_ms(
+               lambda: decode_creads_device(idx, buf), device),
+           "plain_ms": time_ms(lambda: decode_creads_plain(idx, buf), device,
+                               5),
+           **decode_bound(buf, steps, rows)}
     log(f"K3 decode: {m} reads ({idx.size} positions), creads [{cap}, {m}], "
-        f"{steps} live steps: equal, reads recovered, {rec['ms']:.4f} ms vs "
-        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
-    return rec
+        f"{steps} live steps: equal, reads recovered, {rec['ms']:.4f} ms "
+        f"over given rows, {rec['ms_with_rows_build']:.4f} ms with their "
+        f"build, vs plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_ms_record_table']:.4f} ms "
+        f"with the record table)")
+    return [rec, kb]
 
 
 def numpy_merge(a, b):
@@ -768,13 +1002,16 @@ def main_path(device, fixtures: Fixtures, reads=MEDIUM,
         # beyond the -v passes (the walk run's count): three probes a range
         # depth, two a singles depth
         extra = counts["streamed_probe"] - walk_launches["streamed_probe"]
-        if extra < 2 * (READ_LEN + 1) or counts["walk_emit"]:
+        if extra < 2 * (READ_LEN + 1) or counts["walk_emit"] \
+                or counts["walk_planes_build"]:
             raise AssertionError(
                 f"trie main path: {extra} probe launches beyond the walk "
                 f"run's, needs {2 * (READ_LEN + 1)}; launches {counts}")
-    elif min(counts["streamed_probe"], counts["walk_emit"]) < 1:
-        raise AssertionError(f"a kernel did not launch on the two-input "
-                             f"main path: {counts}")
+    elif min(counts["streamed_probe"], counts["walk_emit"],
+             counts["walk_planes_build"]) < 1 or counts["decode"]:
+        raise AssertionError(f"the two-input main path launched {counts}: "
+                             f"needs K1, K2 and walk_planes_build, and no "
+                             f"decode")
 
     phases = phase_times(err)
     b_bases = b_runs.size()
@@ -891,7 +1128,8 @@ def fold_path(device, fixtures: Fixtures, n_patterns=N_PATTERNS) -> dict:
                           np.sum([p.counts(6) for p in pieces], axis=0)):
         raise AssertionError("folded symbol counts differ from the pieces' "
                              "sum")
-    want = {"streamed_probe": 1, "walk_emit": 6, "decode": 3}
+    want = {"streamed_probe": 1, "walk_emit": 6, "walk_planes_build": 3,
+            "decode": 3, "decode_rows_build": 3}
     if any(counts[k] < n for k, n in want.items()):
         raise AssertionError(f"k-way fold launched {counts}, needs at least "
                              f"{want}")
@@ -928,11 +1166,12 @@ def main() -> int:
         measure_copy_rate(device)
         records = check_kernels(device, K1_POSITIONS, K1_QUERIES,
                                 K1_SENTINELS, K2_SHAPE)
-        records.append(check_decode(device, fixtures.get("k3")))
+        records += check_decode(device, fixtures.get("k3"))
         small_merge(device, fixtures)
         small_fold(device, fixtures)
         small_trie(device, fixtures)
         long_read_fold(device, fixtures)
+        kernel_times(device, fixtures)
         paths = {"two_input_merge": main_path(device, fixtures),
                  "kway_fold": fold_path(device, fixtures)}
         paths["trie_merge"] = main_path(

@@ -135,3 +135,46 @@ def test_decode_no_reads():
     assert decode_torch.decode_creads(t, 0, 0).shape == (0, 0)
     dev, n = decode_torch.decode_creads_dev(t, 0, 0)
     assert n == 0 and dev.shape == (1, 0)
+
+
+# -- the decode rows (one 32-byte row per block) -------------------------------
+
+
+@pytest.mark.parametrize("seed,n,max_len", [(12, 1, 2), (13, 40, 12),
+                                            (14, 200, 70)])
+def test_decode_rows_unpack_to_the_record_table(seed, n, max_len):
+    from bwtmerge_tpu_torch.ops.rank_torch import unpack_symbols
+
+    r = np.random.default_rng(seed)
+    _, _, t = _indexes(_reads(r, n, max_len))
+    rows = decode_torch.build_decode_rows_plain(t.rec)
+    assert rows.dtype == torch.int32
+    assert rows.shape == (t.rec.shape[0], 8)
+    assert torch.equal(decode_torch.build_decode_rows(t.rec), rows)
+    assert torch.equal(rows[:, :5], t.rec[:, 1:6])          # occ of 1..5
+    planes = rows[:, 5:].numpy().astype(np.int64) & 0xFFFFFFFF
+    bits = (planes[:, :, None] >> np.arange(32)) & 1        # [NBLK, 3, 32]
+    syms = bits[:, 0] | (bits[:, 1] << 1) | (bits[:, 2] << 2)
+    np.testing.assert_array_equal(syms,
+                                  unpack_symbols(t.rec[:, 8:]).numpy())
+
+
+@pytest.mark.parametrize("seed,n,max_len", [(15, 1, 2), (16, 40, 12),
+                                            (17, 200, 70)])
+def test_decode_rows_step_matches_lf_step_everywhere(seed, n, max_len):
+    r = np.random.default_rng(seed)
+    f, j, t = _indexes(_reads(r, n, max_len))
+    p = torch.arange(f.size())
+    lf, sym = decode_torch.decode_rows_step(
+        decode_torch.build_decode_rows(t.rec), t.C, p)
+    want_lf, want_sym = t.LF_step(p)
+    jax_lf, jax_sym = j.LF_step(jax.numpy.arange(f.size(),
+                                                 dtype=jax.numpy.int32))
+    np.testing.assert_array_equal(want_sym.numpy(), np.asarray(jax_sym))
+    np.testing.assert_array_equal(sym.numpy(), np.asarray(jax_sym))
+    walked = sym.numpy() > 0          # a lane dies at an endmarker
+    assert walked.sum() == f.size() - f.sequences()
+    np.testing.assert_array_equal(lf.numpy()[walked],
+                                  np.asarray(jax_lf)[walked])
+    np.testing.assert_array_equal(lf.numpy()[walked],
+                                  want_lf.numpy()[walked])

@@ -9,13 +9,17 @@ import pytest
 import torch
 
 from bwtmerge_tpu_torch import kernels
-from bwtmerge_tpu_torch.ops.decode_torch import (decode_creads,
+from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
+                                                 build_decode_rows_plain,
+                                                 decode_creads,
                                                  decode_creads_device,
                                                  decode_creads_plain)
 from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
                                                   streamed_probe_plain)
-from bwtmerge_tpu_torch.ops.walk_torch import (build_cplanes, walk_emit,
-                                               walk_emit_plain)
+from bwtmerge_tpu_torch.ops.walk_torch import (SUPER,
+                                               build_walk_planes,
+                                               build_walk_planes_plain,
+                                               walk_emit, walk_emit_plain)
 from chip_smoke import random_index
 
 SENT = 2**31 - 1
@@ -60,7 +64,7 @@ def test_probe_kernel_empty_and_all_sentinels(cuda):
 @pytest.mark.parametrize("shape", [(1, 1), (7, 300), (50, 1 << 16)])
 def test_walk_kernel_matches_plain(cuda, shape):
     idx = _index(200_000, cuda)
-    cpl = build_cplanes(idx.rec)
+    cpl = build_walk_planes(idx.rec)
     gen = torch.Generator(device=cuda).manual_seed(5)
     creads = torch.randint(0, 6, shape, generator=gen,
                            device=cuda).to(torch.int8)
@@ -70,6 +74,45 @@ def test_walk_kernel_matches_plain(cuda, shape):
     assert kernels.WALK_EMIT.launches == before + 1
     e2, n2 = walk_emit_plain(cpl, idx.C, creads, a0)
     assert torch.equal(e1, e2) and int(n1) == int(n2)
+
+
+@pytest.mark.parametrize("n_pos", [1, 31, 223, 224, 225, 447, 448, 200_000])
+def test_walk_planes_build_kernel_matches_plain(cuda, n_pos):
+    idx = _index(n_pos, cuda)
+    before = kernels.WALK_PLANES_BUILD.launches
+    got = build_walk_planes(idx.rec)
+    assert kernels.WALK_PLANES_BUILD.launches == before + 1
+    assert torch.equal(got, build_walk_planes_plain(idx.rec))
+
+
+@pytest.mark.parametrize("n_pos", [1, 224, 447, 100_000])
+def test_walk_kernel_at_super_block_edges(cuda, n_pos):
+    # every lane of one walk starts at a0: the super-blocks' first and last
+    # positions and their neighbours, and the table's last position (the
+    # size)
+    idx = _index(n_pos, cuda)
+    planes = build_walk_planes(idx.rec)
+    gen = torch.Generator(device=cuda).manual_seed(n_pos)
+    creads = torch.randint(0, 6, (5, 257), generator=gen,
+                           device=cuda).to(torch.int8)
+    creads[0, :5] = torch.arange(1, 6, device=cuda)
+    edges = {0, n_pos}
+    for e in list(range(0, min(n_pos, 1000) + 225, SUPER)) \
+            + [n_pos // SUPER * SUPER]:
+        edges.update(x for x in (e - 1, e, e + 1, e + 31, e + 32)
+                     if 0 <= x <= n_pos)
+    for a0 in sorted(edges):
+        e1, n1 = walk_emit(planes, idx.C, creads, a0)
+        e2, n2 = walk_emit_plain(planes, idx.C, creads, a0)
+        assert torch.equal(e1, e2) and int(n1) == int(n2), a0
+
+
+def test_decode_rows_build_kernel_matches_plain(cuda):
+    for idx in (_index(1, cuda), _index(1000, cuda), _real_index(cuda)[0]):
+        before = kernels.DECODE_ROWS_BUILD.launches
+        got = build_decode_rows(idx.rec)
+        assert kernels.DECODE_ROWS_BUILD.launches == before + 1
+        assert torch.equal(got, build_decode_rows_plain(idx.rec))
 
 
 def test_wrappers_reject_cpu_cuda_mix(cuda):
@@ -91,8 +134,10 @@ def test_blocked_walk_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(6)
     creads = rng.integers(0, 6, size=(30, 5000)).astype(np.int8)
     a0 = int(idx.C[1])
-    got = blocked_walk(idx, build_cplanes(idx.rec), creads, 3, a0).finish()
-    want = blocked_walk(cpu, build_cplanes(cpu.rec), creads, 3, a0).finish()
+    got = blocked_walk(idx, build_walk_planes(idx.rec), creads, 3,
+                       a0).finish()
+    want = blocked_walk(cpu, build_walk_planes(cpu.rec), creads, 3,
+                        a0).finish()
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
@@ -101,7 +146,7 @@ def _real_index(device, n_reads=3000, seed=8):
     a few of length 1, and one of 150 (past a 64-row cap)."""
     import numpy as np
 
-    from bwtmerge_tpu.models import oracle
+    from bwtmerge_tpu_torch.models import oracle
     from bwtmerge_tpu_torch.ops.rank_torch import DeviceFMIndex
 
     rng = np.random.default_rng(seed)
@@ -120,9 +165,16 @@ def test_decode_kernel_matches_plain(cuda, lane0, width):
     idx, _ = _real_index(cuda)
     got = torch.zeros((64, width + 8), dtype=torch.int8, device=cuda)
     want = torch.zeros_like(got)
-    before = kernels.DECODE.launches
+    before = kernels.launches()
     n_got = decode_creads_device(idx, got[:, 4:4 + width], lane0)
-    assert kernels.DECODE.launches == before + 1
+    assert kernels.DECODE.launches == before["decode"] + 1
+    # no rows were given, so the wrapper built them
+    assert (kernels.DECODE_ROWS_BUILD.launches
+            == before["decode_rows_build"] + 1)
+    rows = build_decode_rows(idx.rec)
+    again = torch.zeros_like(got)
+    decode_creads_device(idx, again[:, 4:4 + width], lane0, rows)
+    assert torch.equal(again, got)
     n_want = decode_creads_plain(idx, want[:, 4:4 + width], lane0)
     assert torch.equal(got, want)
     assert int(n_got) == int(n_want)
@@ -132,7 +184,7 @@ def test_decode_kernel_matches_plain(cuda, lane0, width):
 def test_decode_kernel_recovers_the_reads(cuda):
     import numpy as np
 
-    from bwtmerge_tpu.formats.sidecar import creads_layout
+    from bwtmerge_tpu_torch.formats.sidecar import creads_layout
 
     idx, reads = _real_index(cuda)
     got = decode_creads(idx, len(reads), idx.size, max_len_cap=1 << 14)
