@@ -10,9 +10,11 @@ the trie search and the k-way fold, on hand-written CUDA kernels for the
 streamed-rank probe, the per-read walk and the read decode (csrc/, built
 with nvcc at first use).
 
-It covers the two-input merge (walk or trie search) and the k-way fold on
-one device, with `-v` verification; see ROADMAP.md for what is still to
-come.
+It covers, on one device: the two-input merge (walk or trie search, or the
+host search into the spill ladder), the k-way fold, `-v` verification, BWT
+construction from reads (ops/sa_torch.py, models/build.py, cli/bwt_build),
+the device interleave and the range-parallel host interleave, and the
+conversion and inspection CLIs; see ROADMAP.md for what is still to come.
 """
 
 
@@ -66,6 +68,17 @@ _EXPORTS = {
     "merge_fmi_many": ".models.kfold",
     "merge_files_many": ".models.kfold",
     "build_rank_array_torch": ".ops.search_torch",
+    "build_from_reads": ".models.build",
+    "rlo_order": ".models.build",
+    "rlo_reorder": ".models.build",
+    "read_plain_reads": ".models.build",
+    "read_plain_reads_packed": ".models.build",
+    "suffix_array_device": ".ops.sa_torch",
+    "build_bwt_device": ".ops.sa_torch",
+    "rlo_order_device": ".ops.sa_torch",
+    "interleave_torch": ".ops.interleave_torch",
+    "interleave_stream_chunks_parallel": ".models.parallel_merge",
+    "coalesce_run_chunks": ".parallel.distributed",
 }
 
 __all__ = sorted(_EXPORTS)

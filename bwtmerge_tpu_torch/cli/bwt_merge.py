@@ -13,6 +13,12 @@ has their text: its read-text sidecar (`B.reads4`), or, with --search walk,
 B decoded on the device and cached as its sidecar.  Every other B (no
 sidecar under --search auto, no reads, reads of 2^14 or more characters,
 or --search trie) goes through the trie search, which needs no read text.
+--backend numpy searches on the host in -s sequence blocks and emits into
+the spill ladder that -r, -b and -m size, under -d; its -v counts on the
+host too.  On the torch backend of one device the rank array streams from
+the device and never reaches the ladder, so there -r, -b, -m and -s are
+accepted and unused, as in the JAX CLI.  --profile DIR writes a
+torch.profiler Chrome trace of every merge into DIR.
 
 Features of later port slices exit with status 1 and name their ROADMAP
 item: -t > 1 and --index-placement sharded.  Exit status 2 means the -v
@@ -36,7 +42,8 @@ from ..models.fmi import load_fmi, serialize_fmi
 from ..models.merge import (MergeConfig, merge_files, merge_fmi,
                             merge_fmi_to_file)
 from ..utils.metrics import in_megabytes
-from .common import check_format, read_rows, report_totals, verify_fmi
+from .common import (check_format, print_formats, read_rows, report_totals,
+                     verify_fmi)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,6 +55,31 @@ def build_parser() -> argparse.ArgumentParser:
                "with N > 1 and --index-placement sharded.")
     p.add_argument("files", nargs="+", metavar="FILE",
                    help="input1 input2 [input3 ...] output")
+    p.add_argument("-r", dest="run_buffer", type=int, default=None,
+                   metavar="N",
+                   help="run buffer size in millions of runs (default 8)")
+    p.add_argument("-b", dest="thread_buffer", type=int, default=None,
+                   metavar="MB",
+                   help="thread buffer size in megabytes (default 256)")
+    p.add_argument("-m", dest="merge_buffers", type=int, default=None,
+                   metavar="N", help="number of merge buffers (default 6)")
+    p.add_argument("-s", dest="sequence_blocks", type=int, default=None,
+                   metavar="N",
+                   help="sequence blocks of the numpy backend's search "
+                        "(default 4)")
+    p.add_argument("--hbm-budget-mb", dest="hbm_budget_mb", type=int,
+                   default=None, metavar="MB",
+                   help="per-device memory budget driving the index "
+                        "placement on more than one device; one device "
+                        "always holds the whole index")
+    p.add_argument("--backend", default="torch", choices=("numpy", "torch"),
+                   help="compute backend: the torch device, or the host "
+                        "search into the spill ladder (default torch)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of each merge "
+                        "to DIR (view with Perfetto)")
+    p.add_argument("--list-formats", action="store_true",
+                   help=argparse.SUPPRESS)
     p.add_argument("-d", dest="temp_dir", default=".", metavar="DIR",
                    help="temp directory for rank-array spills and "
                         "intermediate folds (default .)")
@@ -105,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _later_slice(args):
     """The ROADMAP item a requested feature waits for, or None."""
     if (args.devices or 1) > 1 or args.index_placement == "sharded":
-        return "-t > 1 / --index-placement sharded: ROADMAP A.10 (slice 5)"
+        return "-t > 1 / --index-placement sharded: ROADMAP A.10"
     return None
 
 
@@ -150,7 +182,8 @@ def _save_checkpoint(ckpt_dir, inputs, completed, index, pre) -> None:
 
 class _Run:
     """What every merge route shares: parsed arguments, the device, the
-    merge config, the patterns and their pre/post counts."""
+    merge config, the patterns and their pre/post counts.  `device` is
+    None under --backend numpy: -v then counts on the host."""
 
     def __init__(self, args, inputs, in_formats, output, device, config):
         self.args = args
@@ -175,6 +208,11 @@ class _Run:
         if self.patterns:
             for name, fmt in zip(self.inputs, self.in_formats):
                 self.verify(load_fmi(name, fmt), "Input")
+
+    def trace(self):
+        """--profile: a trace of the region into the directory given."""
+        return self.config.timer.device_trace(self.args.profile,
+                                              self.device or "cpu")
 
     def rate(self, what: str, bases: int, since: float) -> None:
         if self.verbose:
@@ -218,8 +256,9 @@ def _kway_merge(run: _Run) -> int:
     run.verify_inputs()
     stats: dict = {}
     merge_start = time.monotonic()
-    merge_files_many(run.inputs, run.output, run.in_formats,
-                     run.args.output_format, run.config, stats=stats)
+    with run.trace():
+        merge_files_many(run.inputs, run.output, run.in_formats,
+                         run.args.output_format, run.config, stats=stats)
     bases_added = sum(stats["piece_bases"][1:])
     run.rate(f"{len(run.inputs)} inputs in one k-way fold", bases_added,
              merge_start)
@@ -257,9 +296,10 @@ def _low_memory_merge(run: _Run) -> int:
                 dst_fmt = "native"
             merge_start = time.monotonic()
             stats: dict = {}
-            merge_files(cur, run.inputs[i], dst, in_fmt=cur_fmt,
-                        out_fmt=dst_fmt, config=run.config, stats=stats,
-                        in_fmt_b=run.in_formats[i])
+            with run.trace():
+                merge_files(cur, run.inputs[i], dst, in_fmt=cur_fmt,
+                            out_fmt=dst_fmt, config=run.config, stats=stats,
+                            in_fmt_b=run.in_formats[i])
             bases_added += stats["b_bases"]
             run.rate(run.inputs[i], stats["b_bases"], merge_start)
             if cur in temps:
@@ -307,12 +347,13 @@ def _chain_merge(run: _Run) -> int:
         bases_added += increment.size()
         run.verify(increment, "Input")
         merge_start = time.monotonic()
-        if stream_last and i == len(run.inputs) - 1:
-            merge_fmi_to_file(index, increment, run.output,
-                              args.output_format, run.config)
-            streamed_out = True
-        else:
-            index = merge_fmi(index, increment, run.config)
+        with run.trace():
+            if stream_last and i == len(run.inputs) - 1:
+                merge_fmi_to_file(index, increment, run.output,
+                                  args.output_format, run.config)
+                streamed_out = True
+            else:
+                index = merge_fmi(index, increment, run.config)
         run.rate(name, increment.size(), merge_start)
         if not streamed_out:
             _save_checkpoint(args.checkpoint, run.inputs, i, index, run.pre)
@@ -327,6 +368,9 @@ def _chain_merge(run: _Run) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.list_formats:
+        print_formats(sys.stdout)
+        return 0
     if len(args.files) < 3:
         print("bwt_merge: need at least two inputs and an output",
               file=sys.stderr)
@@ -349,10 +393,22 @@ def main(argv=None) -> int:
         check_format(fmt, "bwt_merge", "input")
     check_format(args.output_format, "bwt_merge", "output")
 
-    device = resolve_device(args.device)
-    config = MergeConfig(device=str(device), temp_dir=args.temp_dir,
+    # the numpy backend touches no device: its -v counts on the host
+    device = resolve_device(args.device) if args.backend == "torch" else None
+    config = MergeConfig(device=args.device if device is None else str(device),
+                         backend=args.backend, temp_dir=args.temp_dir,
                          verbose=not args.quiet, search=args.search,
                          cache_sidecar=args.search == "walk")
+    if args.run_buffer is not None:
+        config.run_buffer_runs = args.run_buffer * 1024 * 1024
+    if args.thread_buffer is not None:
+        config.thread_buffer_mb = args.thread_buffer
+    if args.merge_buffers is not None:
+        config.merge_buffers = args.merge_buffers
+    if args.sequence_blocks is not None:
+        config.sequence_blocks = args.sequence_blocks
+    if args.hbm_budget_mb is not None:
+        config.hbm_budget_bytes = args.hbm_budget_mb << 20
     if args.device_blocks is not None:
         config.device_blocks = args.device_blocks
     config.sanitize()
@@ -366,7 +422,9 @@ def main(argv=None) -> int:
         print(f"Output:           {output} ({args.output_format})")
         if args.patterns:
             print(f"Patterns:         {args.patterns}")
-        print(f"Device:           {device}")
+        print(f"Backend:          {args.backend}")
+        if device is not None:
+            print(f"Device:           {device}")
         print("")
         if run.patterns:
             chars = sum(len(p) for p in run.patterns)
@@ -374,16 +432,18 @@ def main(argv=None) -> int:
                   f"{chars}")
             print("")
 
-    kway_ok = (len(inputs) > 2 and args.output_format in STREAM_WRITERS
+    kway_ok = (len(inputs) > 2 and args.backend == "torch"
+               and args.output_format in STREAM_WRITERS
                and not args.checkpoint and not args.low_memory)
     route = _chain_merge
     if args.fold == "kway" or (args.fold == "auto" and kway_ok):
         if kway_ok:
             route = _kway_merge
         else:
-            print("bwt_merge: --fold kway unavailable (needs >2 inputs, a "
-                  "streaming output format, and no --checkpoint/"
-                  "--low-memory); falling back to the pairwise chain",
+            print("bwt_merge: --fold kway unavailable (needs >2 inputs, "
+                  "--backend torch, a streaming output format, and no "
+                  "--checkpoint/--low-memory); falling back to the pairwise "
+                  "chain",
                   file=sys.stderr)
     if route is _chain_merge and args.low_memory:
         route = _low_memory_merge

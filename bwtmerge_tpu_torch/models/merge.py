@@ -1,10 +1,14 @@
 """Two-input merge on one torch device: FMI(A) + FMI(B) -> FMI(A ∪ B).
 
 Port of bwtmerge_tpu/models/merge.py (merge_fmi, merge_fmi_to_file,
-merge_files, _try_walk_search and the device route of _build_ra_spill).
-The search phase builds the rank array on the device and streams it to the
-host block by block (ops/ra_stream.py) into the native interleave and the
-format writers.
+merge_files, _try_walk_search, _build_ra_spill and _interleave).  The search
+phase builds the rank array on the device and streams it to the host block
+by block (ops/ra_stream.py) into the native interleave and the format
+writers.  backend='numpy' searches on the host instead (ops/search_np.py,
+in sequence blocks) and emits into the spill ladder (models/spill.py) that
+run_buffer_runs, thread_buffer_mb and merge_buffers size.  interleave=
+'device' opts merge_fmi into the device interleave
+(ops/interleave_torch.py) for rank arrays that were not spilled.
 
 Two searches build it.  The walk (ops/walk_torch.py) runs every read of B
 backward through A's index; it needs B's read text: its `.reads4` sidecar,
@@ -41,6 +45,20 @@ class MergeConfig:
 
     device:        torch device of the search ('cuda' or 'cpu'); 'cuda'
                    without CUDA raises
+    backend:       'torch' (search on `device`) or 'numpy' (the host search
+                   in sequence_blocks blocks, into the spill ladder)
+    interleave:    'native' (the host C++ interleave) or 'device'
+                   (ops/interleave_torch.py, both inputs decoded on the
+                   device; merge_fmi only, and never for a spilled ladder)
+    run_buffer_runs, merge_buffers: the ladder spills to a file under
+                   temp_dir once it holds their product of runs (-r, -m)
+    thread_buffer_mb: emitted runs compacted every so many megabytes, 16 B
+                   a run (-b)
+    sequence_blocks: blocks of B's sequences the numpy backend searches
+                   one after the other (-s)
+    hbm_budget_bytes: per-device memory budget that chooses the index
+                   placement on more than one device (0 = default); on one
+                   device the placement is always replicated
     temp_dir:      scratch directory (-d): the k-way fold's spill files and
                    the chain's intermediate folds
     device_blocks: blocks of B's reads searched one after the other, so
@@ -57,6 +75,13 @@ class MergeConfig:
     """
 
     device: str = "cuda"
+    backend: str = "torch"
+    interleave: str = "native"
+    run_buffer_runs: int = 8 * 1024 * 1024
+    thread_buffer_mb: int = 256
+    merge_buffers: int = 6
+    sequence_blocks: int = 4
+    hbm_budget_bytes: int = 0
     temp_dir: str = "."
     device_blocks: int = 0
     search: str = "auto"
@@ -66,11 +91,20 @@ class MergeConfig:
     timer: PhaseTimer = field(default_factory=PhaseTimer)
 
     def sanitize(self) -> "MergeConfig":
+        self.sequence_blocks = max(1, self.sequence_blocks)
+        self.merge_buffers = max(1, self.merge_buffers)
         self.device_blocks = max(0, self.device_blocks)
         if self.search not in ("auto", "walk", "trie"):
             raise ValueError(
                 f"search must be auto/walk/trie, got {self.search!r}")
-        resolve_device(self.device)
+        if self.backend not in ("torch", "numpy"):
+            raise ValueError(
+                f"backend must be torch/numpy, got {self.backend!r}")
+        if self.interleave not in ("native", "device"):
+            raise ValueError(
+                f"interleave must be native/device, got {self.interleave!r}")
+        if self.backend == "torch" or self.interleave == "device":
+            resolve_device(self.device)
         return self
 
 
@@ -95,11 +129,22 @@ def merge_fmi(a: FMI, b: FMI, config: Optional[MergeConfig] = None) -> FMI:
         ra = _build_ra(a, b, config)
 
     with config.timer.phase("merge (interleave)"):
-        # capacity hint: every A/B run appears at most once plus at most two
-        # seam splits per RA run
-        hint = a.runs.n_runs + b.runs.n_runs + 2 * ra.n_runs + 16
-        merged_runs = interleave_streaming(a.runs, b.runs, ra.stream(),
-                                           hint_runs=hint)
+        # a spilled ladder must stream; a rank array on the device prefers
+        # to (its copy to the host overlaps the native interleave), unless
+        # the caller opted into the device interleave
+        if ra.n_spill_files or (getattr(ra, "prefer_stream", False)
+                                and config.interleave == "native"):
+            # capacity hint: every A/B run appears at most once plus at most
+            # two seam splits per RA run
+            ra_runs = int(getattr(ra, "n_runs", 0) or 0)
+            hint = (a.runs.n_runs + b.runs.n_runs + 2 * ra_runs + 16
+                    if ra_runs else 0)
+            merged_runs = interleave_streaming(a.runs, b.runs, ra.stream(),
+                                               hint_runs=hint)
+        else:
+            ra_values, ra_counts = ra.finish()
+            merged_runs = _interleave(a.runs, b.runs, ra_values, ra_counts,
+                                      config)
 
     with config.timer.phase("index build"):
         result = FMI(runs=merged_runs, alpha=_merged_alpha(a, b))
@@ -342,15 +387,45 @@ def _n_blocks(config: MergeConfig, b: FMI, units: int,
     return n_blk
 
 
-def _build_ra(a: FMI, b: FMI, config: MergeConfig) -> _PrimedStream:
-    """The search phase on config.device: the walk over B's read text where
-    walk_creads gives it, the trie search otherwise.  Either way B's reads
-    go in blocks sized before the search, and the stream is primed so the
-    first chunk exists before any output is written."""
+def _build_ra_spill(a: FMI, b: FMI, config: MergeConfig):
+    """The numpy backend's search phase: B's sequences in
+    config.sequence_blocks blocks through the host trie search
+    (ops/search_np.py; the reference's sequence-block decomposition,
+    fmi.cpp:351-357), each block's runs emitted into a spill-backed
+    accumulator.  Its sizes map the reference's buffer hierarchy
+    (fmi.h:49-51): compact_every ~ thread buffer, spill threshold ~ the
+    merge buffers' total."""
+    from ..ops import search_np
+    from ..utils.ranges import get_bounds
+    from .spill import RankArraySpill
+
+    compact_every = config.thread_buffer_mb * 1024 * 1024 // 16  # 16 B/run
+    spill = RankArraySpill(
+        temp_dir=config.temp_dir,
+        spill_threshold_runs=config.run_buffer_runs * config.merge_buffers,
+        compact_every=max(compact_every, 1024))
+    for blk in get_bounds((0, b.sequences() - 1), config.sequence_blocks):
+        values, counts = search_np.build_rank_array(
+            a.rank_index, a.alpha.C.astype(np.int64),
+            b.rank_index, b.alpha.C.astype(np.int64),
+            a.sequences(), b.sequences(),
+            sigma=a.alpha.sigma, b_seq_range=blk)
+        spill.emit(values, counts)
+    return spill
+
+
+def _build_ra(a: FMI, b: FMI, config: MergeConfig):
+    """The search phase.  backend='numpy': _build_ra_spill.  Otherwise on
+    config.device: the walk over B's read text where walk_creads gives it,
+    the trie search otherwise.  Either way B's reads go in blocks sized
+    before the search, and the stream is primed so the first chunk exists
+    before any output is written."""
     from ..ops.ra_stream import blocked_walk
     from ..ops.search_torch import blocked_search
     from ..ops.walk_torch import build_walk_planes
 
+    if config.backend == "numpy":
+        return _build_ra_spill(a, b, config)
     creads = walk_creads(b, config)
     index = a.device_index(config.device)
     if creads is not None:
@@ -368,3 +443,18 @@ def _build_ra(a: FMI, b: FMI, config: MergeConfig) -> _PrimedStream:
                             _n_blocks(config, b, seqs, per_read),
                             config.streamed)
     return _prime_stream(ra)
+
+
+def _interleave(a_runs, b_runs, ra_values, ra_counts, config: MergeConfig):
+    """Merged RunArrays from a rank array held whole on the host: the native
+    C++ interleave, or, with interleave='device', the scatters of
+    ops/interleave_torch.py on config.device.  A native library that does
+    not build raises."""
+    if config.interleave == "device":
+        from ..ops.interleave_torch import interleave_torch
+
+        return interleave_torch(a_runs, b_runs, ra_values, ra_counts,
+                                config.device)
+    from ..native import interleave_native
+
+    return interleave_native(a_runs, b_runs, ra_values, ra_counts)

@@ -7,6 +7,7 @@ throughput is reported in the same units (MB/s, Mbases/s) as the paper.
 
 from __future__ import annotations
 
+import os
 import resource
 import sys
 import time
@@ -63,6 +64,7 @@ class PhaseTimer:
 
     phases: Dict[str, float] = field(default_factory=dict)
     verbose: bool = False
+    traces: int = 0
 
     @contextmanager
     def phase(self, name: str) -> Iterator[None]:
@@ -77,6 +79,33 @@ class PhaseTimer:
 
     def total(self) -> float:
         return sum(self.phases.values())
+
+    @contextmanager
+    def device_trace(self, trace_dir: str | None,
+                     device="cuda") -> Iterator[None]:
+        """torch.profiler trace around a region (no-op when trace_dir is
+        None): wall-clock phases stay in `phases`; the timeline of the
+        region (operators, kernels, copies) is written as a Chrome trace,
+        `trace_<pid>_<k>.json` under trace_dir, one file per region (open it
+        in Perfetto or chrome://tracing).  A CUDA `device` adds the card's
+        activities to the host's; on the CPU only the host's are recorded.
+        """
+        if not trace_dir:
+            yield
+            return
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir,
+                            f"trace_{os.getpid()}_{self.traces}.json")
+        self.traces += 1
+        with profile(activities=activities) as prof:
+            yield
+        prof.export_chrome_trace(path)
 
     def report(self, num_bytes: int, out=sys.stderr) -> None:
         for name, seconds in self.phases.items():

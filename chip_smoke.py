@@ -56,6 +56,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    gathers, timed per depth, and the streamed search under the profiler
    for the device time in probes and in sorts.
 
+After these, the phases of construction, the interleaves and the CLIs:
+
+10. CLI gaps (on the small pair): bwt_merge --backend numpy
+    -r 0 -m 2 -b 0 -d DIR must write spill files under DIR and the small
+    merge's bytes (-r counts millions of runs, so at this size only -r 0
+    spills); bwt_convert SGA -> native -> SGA must give back the file; bwt_inspect's totals must equal
+    the fixtures'; the small merge through MergeConfig(interleave="device")
+    must equal the native chain's file;
+11. construction timing: bench.py's large A (2,000,000 reads of
+    50 bp, 102 M positions) built on the card by build_from_reads(backend=
+    "torch"); symbol counts equal the reads', endmarkers the read count;
+    rounds, seconds a round and Mbases/s;
+12. construction at full width: the medium A and B built
+    on the card, written as SGA and byte-compared with the fixtures the
+    numpy oracle built; rlo_order_device on the medium A against rlo_order;
+    the bwt_build CLI on a plain reads file of the medium B, output and
+    sidecar byte-identical to the fixture's;
+13. interleaves at the medium size: the medium merge through
+    MergeConfig(interleave="device"), byte-identical to phase 7's file,
+    with the device time of the scatters and of the run-length pass; the
+    medium pair's rank array through the serial host chain and through
+    interleave_stream_chunks_parallel + coalesce_run_chunks and the writer,
+    byte-identical files, both chains' seconds;
+14. bwt_merge --profile DIR on the small pair must leave one non-empty
+    trace and the small merge's bytes (last of all: a profiler, once started,
+    leaves its tracing library loaded, and later launches pay for it).
+
+Phases 7 and 9 also log the pinned host bytes that the rank array's blocks
+held (ops/ra_stream.py), beside B's size.
+
 The launch counts are set to 0 just before each main path and read just
 after.  The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.  Fixtures are cached in .smoke_cache/.
@@ -98,6 +128,7 @@ K2_SMALL_POSITIONS = 10_000_000   # a walk table that fits the card's L2
 K3_SHORT_MAX_LEN = 6              # reads of the decode's small-table fixture
 N_PATTERNS = 1 << 18
 PATTERN_LEN = 32
+LARGE_A_READS = 2_000_000         # bench.py SCALES["large"], A
 
 
 def log(msg: str) -> None:
@@ -942,18 +973,42 @@ def small_fold(device, fixtures: Fixtures) -> None:
         f"numpy reference left fold {t2 - t1:.3f} s)")
 
 
-def run_cli(argv) -> tuple:
-    """bwt_merge.main(argv) with its output captured and echoed; the
+PINNED = {"bytes": 0}     # pinned host bytes of the rank array's blocks
+
+
+def count_pinned_blocks() -> None:
+    """Wrap ops/ra_stream.Block so that every block adds the bytes of its
+    pinned host tensors to PINNED.  A search makes all its blocks before the
+    merge reads the first, and each is held until the stream ends, so the
+    sum over a merge is that merge's peak."""
+    from bwtmerge_tpu_torch.ops import ra_stream
+
+    plain = ra_stream.Block.__init__
+
+    def counting(self, values, counts):
+        plain(self, values, counts)
+        for t in (self.values, self.counts):
+            if t.is_pinned():
+                PINNED["bytes"] += t.numel() * t.element_size()
+
+    ra_stream.Block.__init__ = counting
+
+
+def run_cli(argv, cli: str = "bwt_merge") -> tuple:
+    """The CLI's main(argv) with its output captured and echoed; the
     kernels' launch counts are set to 0 just before and read just after.
     (exit status, stdout, stderr, launches, wall seconds)"""
-    from bwtmerge_tpu_torch import kernels
-    from bwtmerge_tpu_torch.cli import bwt_merge
+    import importlib
 
+    from bwtmerge_tpu_torch import kernels
+
+    main_fn = importlib.import_module(f"bwtmerge_tpu_torch.cli.{cli}").main
     buf_out, buf_err = io.StringIO(), io.StringIO()
     kernels.reset_launches()
+    PINNED["bytes"] = 0
     t0 = time.monotonic()
     with contextlib.redirect_stdout(buf_out), contextlib.redirect_stderr(buf_err):
-        rc = bwt_merge.main(argv)
+        rc = main_fn(argv)
     wall = time.monotonic() - t0
     counts = kernels.launches()
     sys.stdout.write(buf_out.getvalue())
@@ -1017,9 +1072,13 @@ def main_path(device, fixtures: Fixtures, reads=MEDIUM,
     b_bases = b_runs.size()
     merge_s = (phases.get("search (rank array)", 0)
                + phases.get("merge (interleave)", 0))
+    if not PINNED["bytes"]:
+        raise AssertionError("the main path held no pinned rank-array block")
     result = {"launches": counts, "phases_s": phases,
               "verify_s": verify_times(std), "wall_s": wall,
               "b_bases": b_bases,
+              "ra_pinned_host_bytes": PINNED["bytes"],
+              "ra_pinned_bytes_per_b_position": PINNED["bytes"] / b_bases,
               "merge_mbases_s": b_bases / 1e6 / max(merge_s, 1e-9)}
     log(f"main path (--search {search}) {reads[0]}+{reads[1]} reads, "
         f"{n_patterns} patterns: {json.dumps(result)}")
@@ -1146,6 +1205,281 @@ def fold_path(device, fixtures: Fixtures, n_patterns=N_PATTERNS) -> dict:
     return result
 
 
+# -- construction, the interleaves, the CLI gaps --------------------------------
+
+
+def packed_reads(m: int, seed: int) -> tuple:
+    """A fixture's reads as build_from_reads takes them: (flat int32,
+    lengths)."""
+    return (reads_of(m, seed).astype(np.int32).reshape(-1),
+            np.full(m, READ_LEN, np.int64))
+
+
+def cli_gaps(device, fixtures: Fixtures) -> None:
+    """The merge CLI's --backend numpy with a spilling ladder, bwt_convert's
+    round trip, bwt_inspect's totals, and the device interleave, all on the
+    small pair."""
+    import bwtmerge_tpu_torch as port
+    from bwtmerge_tpu_torch.models import spill
+
+    a_path, b_path = fixtures.get("small_a"), fixtures.get("small_b")
+    d = os.path.dirname(a_path)
+    want = os.path.join(d, "merged_port.sga")          # small_merge's
+    spill_dir = os.path.join(d, "spill")
+    os.makedirs(spill_dir, exist_ok=True)
+    made = []
+    plain = spill.RankArraySpill._spill
+
+    def counting(self):
+        plain(self)
+        path = self._files[-1].path
+        made.append((os.path.dirname(path), os.path.getsize(path)))
+
+    out = os.path.join(d, "merged_numpy.sga")
+    spill.RankArraySpill._spill = counting
+    try:
+        rc, _, _, counts, wall = run_cli(
+            [a_path, b_path, out, "-i", "sga", "-o", "sga", "--backend",
+             "numpy", "-r", "0", "-m", "2", "-b", "0", "-d", spill_dir,
+             "--quiet"])
+    finally:
+        spill.RankArraySpill._spill = plain
+    if rc != 0 or not made or any(x[0] != spill_dir for x in made):
+        raise AssertionError(f"--backend numpy: status {rc}, spill files "
+                             f"{made}")
+    if any(counts.values()) or os.listdir(spill_dir):
+        raise AssertionError(f"--backend numpy launched {counts} or left "
+                             f"{os.listdir(spill_dir)}")
+    same_bytes(out, want, "--backend numpy with a spilled ladder")
+    log(f"bwt_merge --backend numpy -r 0 -m 2 -b 0: {len(made)} spill files "
+        f"of {sum(x[1] for x in made)} B under -d, byte-identical to the "
+        f"device route's ({wall:.3f} s)")
+
+    native = os.path.join(d, "a_converted.native")
+    back = os.path.join(d, "a_converted.sga")
+    for argv in ([a_path, native, "--quiet"],
+                 [native, back, "-i", "native", "-o", "sga", "--quiet"]):
+        rc = run_cli(argv, "bwt_convert")[0]
+        if rc != 0:
+            raise AssertionError(f"bwt_convert {argv} exited {rc}")
+    same_bytes(back, a_path, "bwt_convert sga -> native -> sga")
+    rc, std, _, _, _ = run_cli([a_path, native, b_path], "bwt_inspect")
+    total = re.search(r"Total: (\d+) sequences, (\d+) bases", std)
+    want_total = (2 * SMALL[0] + SMALL[1],
+                  (2 * SMALL[0] + SMALL[1]) * (READ_LEN + 1))
+    if rc != 0 or not total or tuple(map(int, total.groups())) != want_total:
+        raise AssertionError(f"bwt_inspect: status {rc}, totals "
+                             f"{total and total.groups()} for {want_total}")
+    log(f"bwt_convert sga -> native -> sga: byte-identical; bwt_inspect "
+        f"totals {want_total[0]} sequences, {want_total[1]} bases")
+
+    out = os.path.join(d, "merged_device_interleave.sga")
+    t0 = time.monotonic()
+    merged = port.merge_fmi(
+        port.load_fmi(a_path, "sga"), port.load_fmi(b_path, "sga"),
+        port.MergeConfig(device=str(device), temp_dir=d,
+                         interleave="device"))
+    port.serialize_fmi(merged, out, "sga")
+    same_bytes(out, want, "small merge, device interleave")
+    log(f"small merge, interleave='device': byte-identical to the native "
+        f"chain's ({time.monotonic() - t0:.3f} s)")
+
+
+def cli_profile(device, fixtures: Fixtures) -> None:
+    """bwt_merge --profile DIR on the small pair: one non-empty Chrome
+    trace, the merge's bytes unchanged.  Run last: once a profiler has
+    started, its tracing library stays loaded in the process and every
+    later launch pays for it."""
+    a_path, b_path = fixtures.get("small_a"), fixtures.get("small_b")
+    d = os.path.dirname(a_path)
+    want = os.path.join(d, "merged_port.sga")          # small_merge's
+    prof = os.path.join(d, "profile")
+    out = os.path.join(d, "merged_profiled.sga")
+    before = set(os.listdir(prof)) if os.path.isdir(prof) else set()
+    rc, _, _, _, wall = run_cli([a_path, b_path, out, "-i", "sga", "-o",
+                                 "sga", "--device", str(device), "--profile",
+                                 prof, "--quiet"])
+    traces = sorted(set(os.listdir(prof)) - before)
+    sizes = [os.path.getsize(os.path.join(prof, t)) for t in traces]
+    if rc != 0 or len(traces) != 1 or sizes[0] < 1000:
+        raise AssertionError(f"--profile: status {rc}, traces {traces} of "
+                             f"{sizes} B")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    on_card = sum(1 for e in events if e.get("cat") == "kernel")
+    same_bytes(out, want, "--profile")
+    log(f"bwt_merge --profile: {traces[0]} of {sizes[0]} B, {len(events)} "
+        f"events, {on_card} kernels on the card ({wall:.3f} s)")
+    for t in traces:
+        os.remove(os.path.join(prof, t))
+
+
+def construction_timing(device, m: int = LARGE_A_READS, seed: int = 1) -> dict:
+    """bench.py's large A built on the card.  No numpy build exists at this
+    size to compare with, so the cheap facts are checked: symbol counts
+    equal the reads', endmarkers the read count."""
+    from bwtmerge_tpu_torch.models.build import build_from_reads
+
+    t0 = time.monotonic()
+    flat, lengths = packed_reads(m, seed)
+    t1 = time.monotonic()
+    stats = {}
+    runs, order = build_from_reads((flat, lengths), backend="torch",
+                                   device=str(device), stats=stats)
+    t2 = time.monotonic()
+    want = np.bincount(flat, minlength=6)
+    want[0] = m
+    if not np.array_equal(runs.counts(6), want) or order.size != m:
+        raise AssertionError(f"device build of {m} reads: symbol counts "
+                             f"{runs.counts(6)} for {want}")
+    bases = int(lengths.sum())
+    result = {"reads": m, "positions": stats["positions"],
+              "rounds": stats["rounds"], "round_s": stats["round_s"],
+              "device_s": stats["device_s"], "runs_download_s": stats["runs_s"],
+              "build_from_reads_s": t2 - t1, "reads_made_s": t1 - t0,
+              "n_runs": runs.n_runs,
+              "mbases_s": bases / 1e6 / (t2 - t1),
+              "device_mbases_s": bases / 1e6 / stats["device_s"]}
+    log(f"construction timing, {m} reads of {READ_LEN} bp on the card: "
+        f"{json.dumps(result)}")
+    return result
+
+
+def construction(device, fixtures: Fixtures) -> None:
+    """The medium A and B built on the card against the fixtures the numpy
+    oracle built (byte-identical SGA files); rlo_order_device against
+    rlo_order on the medium A; the bwt_build CLI on the medium B's reads."""
+    from bwtmerge_tpu_torch.formats import write_bwt
+    from bwtmerge_tpu_torch.models.build import (alphabet_for,
+                                                 build_from_reads, rlo_order)
+    from bwtmerge_tpu_torch.ops import sa_torch
+    from bwtmerge_tpu_torch.utils.alphabet import Alphabet
+
+    d = os.path.dirname(fixtures.get("a"))
+    for key, m, seed in (("a", MEDIUM[0], 1), ("b", MEDIUM[1], 2)):
+        stats = {}
+        t0 = time.monotonic()
+        runs, _ = build_from_reads(packed_reads(m, seed), backend="torch",
+                                   device=str(device), stats=stats)
+        t1 = time.monotonic()
+        out = os.path.join(d, f"{key}_device_built.sga")
+        write_bwt(out, "sga", runs, alphabet_for(runs))
+        same_bytes(out, fixtures.get(key), f"device build of the medium {key}")
+        os.remove(out)
+        log(f"device build, medium {key.upper()} ({m} reads, "
+            f"{stats['positions']} positions): byte-identical to the numpy "
+            f"oracle's fixture; {stats['rounds']} rounds "
+            f"{[round(x, 4) for x in stats['round_s']]} s, device "
+            f"{stats['device_s']:.3f} s, download of the run arrays "
+            f"{stats['runs_s']:.3f} s, build_from_reads {t1 - t0:.3f} s "
+            f"({m * READ_LEN / 1e6 / (t1 - t0):.1f} Mbases/s)")
+
+    reads = reads_of(MEDIUM[0], 1)
+    t0 = time.monotonic()
+    got = sa_torch.rlo_order_device(packed_reads(MEDIUM[0], 1), device)
+    t1 = time.monotonic()
+    want = rlo_order(list(reads))
+    t2 = time.monotonic()
+    if not np.array_equal(got, want):
+        raise AssertionError("rlo_order_device differs from rlo_order on the "
+                             "medium A")
+    log(f"rlo_order_device, medium A: equal to rlo_order (device "
+        f"{t1 - t0:.3f} s with its host key packing, numpy lexsort "
+        f"{t2 - t1:.3f} s)")
+
+    reads_path = os.path.join(d, "b_reads.txt")
+    chars = Alphabet().comp2char[reads_of(MEDIUM[1], 2).astype(np.uint8)]
+    lines = np.full((MEDIUM[1], READ_LEN + 1), 0x0A, np.uint8)
+    lines[:, :READ_LEN] = chars
+    lines.tofile(reads_path)
+    out = os.path.join(d, "b_cli_built.sga")
+    rc, std, _, _, wall = run_cli([reads_path, out, "-o", "sga", "--device",
+                                   str(device)], "bwt_build")
+    if rc != 0:
+        raise AssertionError(f"bwt_build exited {rc}")
+    same_bytes(out, fixtures.get("b"), "bwt_build of the medium B")
+    same_bytes(out + ".reads4", fixtures.get("b") + ".reads4",
+               "bwt_build's sidecar of the medium B")
+    for path in (reads_path, out, out + ".reads4"):
+        os.remove(path)
+    log(f"bwt_build CLI, medium B from a plain reads file: output and "
+        f"sidecar byte-identical to the fixture's ({wall:.3f} s)")
+
+
+def medium_interleaves(device, fixtures: Fixtures, workers=(3, 6)) -> dict:
+    """The medium merge through the device interleave, and the medium
+    pair's rank array through the serial and the range-parallel host
+    chains: every file byte-identical to the main path's."""
+    import bwtmerge_tpu_torch as port
+    from bwtmerge_tpu_torch.formats.streaming import write_bwt_stream
+    from bwtmerge_tpu_torch.models.merge import _build_ra, _merged_alpha
+    from bwtmerge_tpu_torch.models.parallel_merge import (
+        interleave_stream_chunks_parallel)
+    from bwtmerge_tpu_torch.native import interleave_stream_chunks
+    from bwtmerge_tpu_torch.ops import interleave_torch as il
+    from bwtmerge_tpu_torch.parallel.distributed import coalesce_run_chunks
+    from bwtmerge_tpu_torch.utils.pipeline import prefetch_chunks
+
+    a_path, b_path = fixtures.get("a"), fixtures.get("b")
+    d = os.path.dirname(a_path)
+    want = os.path.join(d, "merged.sga")               # the main path's
+    a, b = port.load_fmi(a_path, "sga"), port.load_fmi(b_path, "sga")
+    result = {}
+
+    stats = {}
+    plain = il.interleave_torch
+    il.interleave_torch = lambda *args: plain(*args, stats=stats)
+    out = os.path.join(d, "merged_device_interleave.sga")
+    t0 = time.monotonic()
+    try:
+        merged = port.merge_fmi(a, b, port.MergeConfig(
+            device=str(device), temp_dir=d, interleave="device"))
+    finally:
+        il.interleave_torch = plain
+    t1 = time.monotonic()
+    port.serialize_fmi(merged, out, "sga")
+    same_bytes(out, want, "medium merge, device interleave")
+    os.remove(out)
+    result["device_interleave"] = {
+        "merge_fmi_s": t1 - t0, "interleave_decoded_ms":
+        stats["interleave_s"] * 1e3, "rle_ms": stats["rle_s"] * 1e3,
+        "positions": merged.size(), "runs": merged.runs.n_runs}
+    del merged
+
+    config = port.MergeConfig(device=str(device), temp_dir=d).sanitize()
+    rv, rc = _build_ra(a, b, config).finish()
+    alpha = _merged_alpha(a, b)
+
+    def chunks(step=1 << 20):
+        for s in range(0, rv.size, step):
+            yield rv[s:s + step], rc[s:s + step]
+
+    def serial():
+        return prefetch_chunks(interleave_stream_chunks(
+            a.runs, b.runs, prefetch_chunks(chunks(), depth=2)), depth=1)
+
+    chains = {"serial": serial}
+    for w in workers:
+        chains[f"parallel_{w}"] = lambda w=w: coalesce_run_chunks(
+            interleave_stream_chunks_parallel(a.runs, b.runs, chunks(),
+                                              workers=w))
+    result["host_chains_s"] = {}
+    for rep in range(2):
+        for name, chain in chains.items():
+            out = os.path.join(d, f"merged_{name}.sga")
+            t0 = time.monotonic()
+            write_bwt_stream(out, "sga", chain(), alpha)
+            result["host_chains_s"].setdefault(name, []).append(
+                time.monotonic() - t0)
+            same_bytes(out, want, f"medium pair, {name} host chain")
+            os.remove(out)
+    result["ra_runs"] = int(rv.size)
+    result["cpu_count"] = os.cpu_count()
+    log(f"medium interleaves, all byte-identical to the main path's file: "
+        f"{json.dumps(result)}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1162,6 +1496,7 @@ def main() -> int:
     builds = build_all()
     log(f"build: kernels {builds['kernels_s']:.2f} s, native host library "
         f"{builds['native_s']:.2f} s")
+    count_pinned_blocks()
     with Fixtures() as fixtures:
         measure_copy_rate(device)
         records = check_kernels(device, K1_POSITIONS, K1_QUERIES,
@@ -1178,6 +1513,13 @@ def main() -> int:
             device, fixtures, search="trie",
             walk_launches=paths["two_input_merge"]["launches"])
         trie_depths(device, fixtures)
+        # the later slices' phases come after the main paths, which so run
+        # in the process state they always had
+        cli_gaps(device, fixtures)
+        construction_timing(device)
+        construction(device, fixtures)
+        medium_interleaves(device, fixtures)
+        cli_profile(device, fixtures)
     for rec in records:
         by_path = {k: r["launches"][rec["name"]] for k, r in paths.items()}
         rec["launches"] = sum(by_path.values())

@@ -304,3 +304,252 @@ def test_too_few_files_and_missing_input(tmp_path):
     with pytest.raises(FileNotFoundError):
         port_cli.main(["nope.sga", "nope2.sga", str(tmp_path / "o.sga"),
                        "-i", "sga", "--device", "cpu", "--quiet"])
+
+
+# -- the arguments the port's CLI had refused (-r, -b, -m, -s,
+# --hbm-budget-mb, --backend, --profile, --list-formats) ----------------------
+
+
+def _spill_counter(monkeypatch):
+    """Counts the spill files the port's ladder writes."""
+    from bwtmerge_tpu_torch.models import spill
+
+    made = []
+    real = spill.RankArraySpill._spill
+
+    def counting(self):
+        real(self)
+        made.append(self._files[-1].path)
+        assert os.path.exists(made[-1])
+
+    monkeypatch.setattr(spill.RankArraySpill, "_spill", counting)
+    return made
+
+
+@pytest.mark.parametrize("extra", [
+    ["-r", "8"], ["-b", "1"], ["-m", "2"], ["-s", "3"],
+    ["--hbm-budget-mb", "100"], ["--backend", "numpy"],
+    ["--backend", "numpy", "-s", "1"], ["--backend", "numpy", "--stream"],
+    ["--backend", "numpy", "--low-memory"], ["--profile", "PROF"]],
+    ids=lambda x: "".join(x))
+def test_cli_argument_matches_jax(tmp_path, pieces, capsys, extra):
+    _, paths, pats = pieces
+    res = {}
+    for name, cli, dev in (("jax", jax_cli, []),
+                           ("port", port_cli, ["--device", "cpu"])):
+        files = _copies(tmp_path, name, paths[:2])
+        out = str(tmp_path / name / "out.sga")
+        args = [str(tmp_path / name / "prof") if x == "PROF" else x
+                for x in extra]
+        rc = within(300, cli.main, [*files, out, "-i", "sga", "-o", "sga",
+                                    "-v", pats, "-d", str(tmp_path / name),
+                                    *dev, *args])
+        cap = capsys.readouterr()
+        counts = re.findall(r"^(Input|Output): (\d+) patterns, (\d+) "
+                            r"occurrences", cap.out, re.M)
+        res[name] = (rc, counts, open(out, "rb").read(), cap.out)
+    assert res["port"][:3] == res["jax"][:3]
+    assert res["port"][0] == 0 and len(res["port"][1]) == 3
+    assert ("Backend:          numpy" in res["port"][3]) == ("numpy" in extra)
+    if "--profile" in extra:
+        traces = os.listdir(tmp_path / "port" / "prof")
+        assert len(traces) == 1 and traces[0].endswith(".json")
+        assert os.path.getsize(tmp_path / "port" / "prof" / traces[0]) > 100
+        import json
+
+        with open(tmp_path / "port" / "prof" / traces[0]) as f:
+            assert json.load(f)["traceEvents"]
+
+
+def test_numpy_backend_spills_under_d_and_matches_default(tmp_path, pieces,
+                                                         capsys, monkeypatch):
+    # -r counts millions of runs, so -r 1 -m 2 spills only past 2 M runs;
+    # -r 0 -m 2 -b 0 spills at every compaction (1024 runs), in both CLIs
+    _, paths, pats = pieces
+    made = _spill_counter(monkeypatch)
+    d = tmp_path / "spill"
+    d.mkdir()
+    out = str(tmp_path / "numpy.sga")
+    rc = port_cli.main([*paths[:2], out, "-i", "sga", "-o", "sga", "-v", pats,
+                        "--backend", "numpy", "-r", "0", "-m", "2", "-b", "0",
+                        "-s", "9", "-d", str(d), "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert rc == 0 and "Verification successful" in text
+    assert len(made) >= 2
+    assert all(os.path.dirname(p) == str(d) for p in made)
+    assert not os.listdir(d)                     # consumed by the stream
+    n_spilled = len(made)
+    ref = str(tmp_path / "default.sga")
+    assert port_cli.main([*paths[:2], ref, "-i", "sga", "-o", "sga",
+                          "--device", "cpu", "--quiet"]) == 0
+    assert len(made) == n_spilled                # the device route: no ladder
+    with open(out, "rb") as f1, open(ref, "rb") as f2:
+        assert f1.read() == f2.read()
+    # the JAX CLI with the same arguments writes the same bytes
+    j_out = str(tmp_path / "jax.sga")
+    assert jax_cli.main([*paths[:2], j_out, "-i", "sga", "-o", "sga",
+                         "--backend", "numpy", "-r", "0", "-m", "2", "-b",
+                         "0", "-s", "9", "-d", str(d), "--quiet"]) == 0
+    with open(out, "rb") as f1, open(j_out, "rb") as f2:
+        assert f1.read() == f2.read()
+
+
+def test_merge_config_ladder_fields_follow_the_jax_package():
+    from bwtmerge_tpu.models.merge import MergeConfig as JConfig
+    from bwtmerge_tpu_torch.models.merge import MergeConfig as PConfig
+
+    j, p = JConfig(), PConfig(device="cpu")
+    for name in ("run_buffer_runs", "thread_buffer_mb", "merge_buffers",
+                 "sequence_blocks", "hbm_budget_bytes", "interleave"):
+        assert getattr(p, name) == getattr(j, name), name
+    j = JConfig(merge_buffers=0, sequence_blocks=-3).sanitize()
+    p = PConfig(device="cpu", merge_buffers=0, sequence_blocks=-3).sanitize()
+    assert (p.merge_buffers, p.sequence_blocks) == \
+        (j.merge_buffers, j.sequence_blocks) == (1, 1)
+
+
+def test_list_formats_matches_jax(capsys):
+    assert jax_cli.main(["--list-formats", "x"]) == 0
+    want = capsys.readouterr().out
+    assert port_cli.main(["--list-formats", "x"]) == 0
+    got = capsys.readouterr().out
+    assert got == want and "native" in got and "sga" in got
+
+
+def test_every_jax_cli_argument_parses_in_the_port():
+    # every option string of the JAX CLI's parser is one of the port's
+    def options(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+
+    missing = options(jax_cli.build_parser()) - options(
+        port_cli.build_parser())
+    assert not missing, missing
+    args = port_cli.build_parser().parse_args(
+        ["-r", "8", "-b", "2", "-m", "3", "-s", "5", "--hbm-budget-mb", "7",
+         "--backend", "numpy", "--profile", "d", "--list-formats", "a", "b",
+         "o"])
+    assert (args.run_buffer, args.thread_buffer, args.merge_buffers,
+            args.sequence_blocks, args.hbm_budget_mb, args.backend,
+            args.profile, args.list_formats) == (8, 2, 3, 5, 7, "numpy", "d",
+                                                 True)
+
+
+def test_later_slice_message_names_the_item_only(tmp_path, inputs, capsys):
+    a, b, _, _, _ = inputs
+    assert port_cli.main([a, b, str(tmp_path / "o.sga"), "-i", "sga", "-t",
+                          "2", "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "ROADMAP A.10" in err and "slice" not in err
+
+
+def test_numpy_backend_with_three_inputs_takes_the_chain(tmp_path, pieces,
+                                                        capsys):
+    _, paths, pats = pieces
+    res = _both(tmp_path, capsys, paths[:3], ["-v", pats, "--backend",
+                                              "numpy"])
+    _assert_same(res, 3)
+    assert "k-way fold" not in res["port"][3]
+
+
+# -- bwt_convert and bwt_inspect ------------------------------------------------
+
+
+def test_convert_every_format_pair_matches_jax(tmp_path, inputs):
+    from bwtmerge_tpu.cli import bwt_convert as j_convert
+    from bwtmerge_tpu_torch.cli import bwt_convert as p_convert
+
+    a = inputs[0]
+    prev = {"jax": (a, "sga"), "port": (a, "sga")}
+    for fmt in ("ropebwt", "plain_default", "plain_sorted", "rfm", "sdsl",
+                "native", "sga"):
+        data = {}
+        for name, cli in (("jax", j_convert), ("port", p_convert)):
+            src, src_fmt = prev[name]
+            dst = str(tmp_path / f"{name}.{fmt}")
+            assert cli.main([src, dst, "-i", src_fmt, "-o", fmt,
+                             "--quiet"]) == 0
+            prev[name] = (dst, fmt)
+            with open(dst, "rb") as f:
+                data[name] = f.read()
+        assert data["port"] == data["jax"], fmt
+    with open(a, "rb") as f:
+        assert f.read() == data["port"]          # the chain came back to it
+
+
+def test_convert_defaults_banner_and_bad_format(tmp_path, inputs, capsys):
+    from bwtmerge_tpu.cli import bwt_convert as j_convert
+    from bwtmerge_tpu_torch.cli import bwt_convert as p_convert
+
+    a = inputs[0]
+    outs = {}
+    for name, cli in (("jax", j_convert), ("port", p_convert)):
+        dst = str(tmp_path / f"{name}.native")
+        assert cli.main([a, dst]) == 0           # sga -> native by default
+        outs[name] = (open(dst, "rb").read(),
+                      capsys.readouterr().out.splitlines())
+    assert outs["port"][0] == outs["jax"][0]
+    p_lines, j_lines = outs["port"][1], outs["jax"][1]
+    assert p_lines[0] == "BWT converter (PyTorch)" and "TPU" in j_lines[0]
+    assert [x for x in p_lines[1:] if "converted in" not in x
+            and "Memory" not in x and "port.native" not in x] == \
+        [x for x in j_lines[1:] if "converted in" not in x
+         and "Memory" not in x and "jax.native" not in x]
+    with pytest.raises(SystemExit):
+        p_convert.main([a, str(tmp_path / "x"), "-i", "bogus"])
+    assert p_convert.main(["--list-formats", "a", "b"]) == 0
+    got = capsys.readouterr().out
+    assert j_convert.main(["--list-formats", "a", "b"]) == 0
+    assert got == capsys.readouterr().out
+
+
+def test_convert_rlo_matches_jax(tmp_path, capsys):
+    from bwtmerge_tpu.cli import bwt_convert as j_convert
+    from bwtmerge_tpu.models.build import alphabet_for, build_from_reads
+    from bwtmerge_tpu_torch.cli import bwt_convert as p_convert
+
+    rng = np.random.default_rng(31)
+    reads = [rng.integers(1, 4, 10) for _ in range(10)]
+    runs = oracle.build_bwt(reads)
+    src = str(tmp_path / "in.sga")
+    write_bwt(src, "sga", runs, alphabet_for(runs))
+    data = {}
+    for name, cli, dev in (("jax", j_convert, []),
+                           ("port", p_convert, ["--device", "cpu"])):
+        dst = str(tmp_path / f"{name}.native")
+        assert cli.main([src, dst, "-i", "sga", "-o", "native", "--rlo",
+                         *dev]) == 0
+        text = capsys.readouterr().out
+        data[name] = (open(dst, "rb").read(),
+                      re.findall(r"^RLO reorder: .*$", text, re.M))
+    assert data["port"] == data["jax"] and data["port"][1]
+    from bwtmerge_tpu.formats import read_bwt
+
+    got, _, _ = read_bwt(str(tmp_path / "port.native"), "native")
+    assert got == build_from_reads(reads, rlo=True)[0]
+
+
+def test_inspect_matches_jax(tmp_path, inputs, capsys):
+    from bwtmerge_tpu.cli import bwt_inspect as j_inspect
+    from bwtmerge_tpu_torch.cli import bwt_convert as p_convert
+    from bwtmerge_tpu_torch.cli import bwt_inspect as p_inspect
+
+    a, b, _, a_seqs, b_seqs = inputs
+    native = str(tmp_path / "a.native")
+    rope = str(tmp_path / "a.ropebwt")
+    p_convert.main([a, native, "--quiet"])
+    p_convert.main([a, rope, "-o", "ropebwt", "--quiet"])
+    junk = str(tmp_path / "junk.bin")
+    with open(junk, "wb") as f:
+        f.write(b"\x00" * 64)
+    files = [native, a, b, rope, junk, str(tmp_path / "missing")]
+    assert j_inspect.main(files) == 0
+    want = capsys.readouterr()
+    assert p_inspect.main(files) == 0
+    got = capsys.readouterr()
+    assert got.out == want.out and got.err == want.err
+    assert "Native format" in got.out and "Unknown format" in got.out
+    assert f"Total: {2 * len(a_seqs) + len(b_seqs)} sequences" in got.out
+    assert "Cannot open input file" in got.err
+    with open(native, "rb") as f:
+        head = f.read(64)
+    assert p_inspect.identify(head)[1:] == j_inspect.identify(head)[1:]

@@ -1,6 +1,7 @@
 """The port's own host layers (bwtmerge_tpu_torch/{formats,native,utils},
 models/{runs,oracle,spill,kfold_stage,fmi}, ops/{rank_np,search_np,
-interleave_np}) against the JAX package's modules they were copied from:
+interleave_np}, parallel/distributed) against the JAX package's modules
+they were copied from:
 the same inputs, made from a seed with numpy, through both; files
 byte-identical, values exactly equal.
 """
@@ -307,8 +308,10 @@ def test_native_library_is_the_ports_own():
     assert lib is not j_build.load_library()
     src = os.path.join(os.path.dirname(p_build.__file__), "src")
     assert sorted(os.listdir(src)) == sorted(
-        f for f in os.listdir(os.path.join(os.path.dirname(j_build.__file__),
-                                           "src")) if f != "selftest.cpp")
+        os.listdir(os.path.join(os.path.dirname(j_build.__file__), "src")))
+    # the self-test holds a main(): it is never linked into the library
+    assert sorted(p_build._SOURCES) == sorted(
+        f for f in os.listdir(src) if f != "selftest.cpp")
 
 
 def test_native_build_failure_raises_with_compiler_output(tmp_path,
@@ -643,3 +646,112 @@ def test_host_fmi(tmp_path, seed):
     assert pf._rank is None and pf._creads is None and pf.creads_path is None
     assert pf.creads() is None and pf.rank_index is not rank
     assert again == pf                     # caches take no part in equality
+
+
+# -- parallel/distributed.py: the sharded merge output's host functions ---------
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_range_cursor(seed):
+    import bwtmerge_tpu.parallel.distributed as j_dist
+    import bwtmerge_tpu_torch.parallel.distributed as p_dist
+
+    r = np.random.default_rng(seed)
+    lens = r.integers(1, 9, size=40).astype(np.int64)
+    cum = np.cumsum(lens)
+    for pos in [-3, 0, 1, int(cum[5]), int(cum[5]) - 1, int(cum[-1]) - 1,
+                int(cum[-1]), int(cum[-1]) + 7,
+                *r.integers(0, int(cum[-1]), size=20).tolist()]:
+        want = j_dist._range_cursor(lens, pos)
+        assert p_dist._range_cursor(lens, pos) == want
+        assert p_dist._range_cursor(lens, pos, cum) == want
+    empty = np.zeros(0, np.int64)
+    assert p_dist._range_cursor(empty, 0) == j_dist._range_cursor(empty, 0)
+    assert p_dist._range_cursor(empty, 5) == j_dist._range_cursor(empty, 5)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("n_ranges", [1, 3, 6])
+def test_interleave_range_chunks_and_coalesce(seed, n_ranges):
+    import bwtmerge_tpu.parallel.distributed as j_dist
+    import bwtmerge_tpu_torch.parallel.distributed as p_dist
+
+    a, b, values, counts, want = _merge_inputs(seed)
+    pa = p_runs.RunArrays(a.syms, a.lens)
+    pb = p_runs.RunArrays(b.syms, b.lens)
+    n_a = a.size()
+    # ranges of A positions, each with the rank-array runs that fall in it
+    cuts = [0, *sorted(np.random.default_rng(seed).integers(
+        1, n_a, size=n_ranges - 1).tolist()), n_a + 1]
+    frags = {"jax": [], "port": []}
+    b_off = 0
+    for k in range(n_ranges):
+        lo, hi = cuts[k], cuts[k + 1]
+        last = k == n_ranges - 1
+        sel = (values >= lo) & (values < hi)
+        rv, rc = values[sel], counts[sel]
+        for name, dist, ra, rb in (("jax", j_dist, a, b),
+                                   ("port", p_dist, pa, pb)):
+            frags[name] += [(s.copy(), l.copy()) for s, l in
+                            dist.interleave_range_chunks(
+                                ra, rb, _ra_chunks(rv, rc, 5), lo,
+                                min(hi, n_a), b_off, last)]
+        b_off += int(rc.sum())
+    assert len(frags["port"]) == len(frags["jax"])
+    for (gs, gl), (ws, wl) in zip(frags["port"], frags["jax"]):
+        assert np.array_equal(gs, ws) and np.array_equal(gl, wl)
+        assert gs.dtype == ws.dtype and gl.dtype == wl.dtype
+    got = list(p_dist.coalesce_run_chunks(iter(frags["port"])))
+    ref = list(j_dist.coalesce_run_chunks(iter(frags["jax"])))
+    assert len(got) == len(ref)
+    for (gs, gl), (ws, wl) in zip(got, ref):
+        assert np.array_equal(gs, ws) and np.array_equal(gl, wl)
+        assert gs.dtype == ws.dtype and gl.dtype == wl.dtype
+    assert _cat(got) == want
+    # a range that does not fit the inputs raises in both
+    for dist, ra, rb in ((j_dist, a, b), (p_dist, pa, pb)):
+        with pytest.raises(ValueError):
+            list(dist.interleave_range_chunks(
+                ra, rb, iter([(np.array([n_a + 5]), np.array([1]))]), 0,
+                n_a, 0, True))
+
+
+def test_coalesce_run_chunks_seams():
+    import bwtmerge_tpu.parallel.distributed as j_dist
+    import bwtmerge_tpu_torch.parallel.distributed as p_dist
+
+    def chunks():
+        u8, i64 = np.uint8, np.int64
+        yield np.array([1, 2], u8), np.array([3, 4], i64)
+        yield np.zeros(0, u8), np.zeros(0, i64)
+        yield np.array([2], u8), np.array([5], i64)          # absorbed whole
+        yield np.array([2, 3, 3], u8), np.array([1, 1, 2], i64)
+        yield np.array([4], u8), np.array([9], i64)
+
+    got = list(p_dist.coalesce_run_chunks(chunks()))
+    ref = list(j_dist.coalesce_run_chunks(chunks()))
+    assert [(s.tolist(), l.tolist()) for s, l in got] == \
+        [(s.tolist(), l.tolist()) for s, l in ref]
+    flat = _cat(got)
+    assert flat.syms.tolist() == [1, 2, 3, 3, 4]
+    assert flat.lens.tolist() == [3, 10, 1, 2, 9]
+    assert list(p_dist.coalesce_run_chunks(iter([]))) == []
+
+
+def test_phase_timer_device_trace(tmp_path):
+    import json
+
+    t = p_metrics.PhaseTimer()
+    with t.device_trace(None):
+        pass
+    assert t.traces == 0 and not list(tmp_path.iterdir())
+    import torch
+
+    for _ in range(2):
+        with t.device_trace(str(tmp_path / "prof"), "cpu"):
+            torch.arange(1000).sort()
+    files = sorted(os.listdir(tmp_path / "prof"))
+    assert len(files) == 2 and t.traces == 2
+    with open(tmp_path / "prof" / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("sort" in str(e.get("name", "")) for e in events)

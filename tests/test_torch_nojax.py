@@ -7,8 +7,11 @@ subprocess stages), runs under a sitecustomize that makes an import of
 `jax`, `jax.*`, `bwtmerge_tpu` or `bwtmerge_tpu.*` raise.  There the
 fixtures are made with the port's own formats and oracle, every port module
 and chip_smoke are imported, and the port's CLI runs a two-input merge by
-the walk and by the trie search and a three-input k-way fold with its
-subprocess chain, so that a lazy import on any of these paths fails too.
+the walk and by the trie search, a three-input k-way fold with its
+subprocess chain and a merge on the numpy backend with --profile, the
+bwt_build, bwt_convert and bwt_inspect CLIs run, and the device interleave
+and the range-parallel host interleave merge a pair, so that a lazy import
+on any of these paths fails too.
 The second case reads the port's sources for such an import.
 """
 
@@ -55,7 +58,11 @@ CHILD = textwrap.dedent("""
     import bwtmerge_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         bwtmerge_tpu_torch.__path__, "bwtmerge_tpu_torch.")]
-    assert len(names) > 35, names
+    assert len(names) > 43, names
+    for new in ("cli.bwt_build", "cli.bwt_convert", "cli.bwt_inspect",
+                "ops.sa_torch", "ops.interleave_torch", "models.build",
+                "models.parallel_merge", "parallel.distributed"):
+        assert f"bwtmerge_tpu_torch.{new}" in names, new
     for name in names:
         importlib.import_module(name)
     import chip_smoke
@@ -92,6 +99,51 @@ CHILD = textwrap.dedent("""
     assert rc == 0, rc
     runs, _, _ = read_bwt(f"{d}/k.sga", "sga")
     assert runs == oracle.merge_collections(colls)
+    # the host search into the spill ladder, with a trace of the merge
+    rc = cli.main([f"{d}/a.sga", f"{d}/b.sga", f"{d}/o_numpy.sga",
+                   "--backend", "numpy", "-r", "0", "-b", "0", "-d", d,
+                   "--profile", f"{d}/prof", *common])
+    assert rc == 0, rc
+    runs, _, _ = read_bwt(f"{d}/o_numpy.sga", "sga")
+    assert runs == oracle.merge_collections(colls[:2])
+    # construction, conversion and inspection through their CLIs
+    import bwtmerge_tpu_torch.cli.bwt_build as build_cli
+    import bwtmerge_tpu_torch.cli.bwt_convert as convert_cli
+    import bwtmerge_tpu_torch.cli.bwt_inspect as inspect_cli
+    comp2char = Alphabet().comp2char
+    with open(f"{d}/reads.txt", "wb") as f:
+        for s in colls[0]:
+            f.write(bytes(comp2char[s]) + b"\\n")
+    for backend in ("numpy", "torch"):
+        rc = build_cli.main([f"{d}/reads.txt", f"{d}/built_{backend}.sga",
+                             "-o", "sga", "--backend", backend, "--device",
+                             "cpu", "--quiet"])
+        assert rc == 0, (backend, rc)
+        runs, _, _ = read_bwt(f"{d}/built_{backend}.sga", "sga")
+        assert runs == oracle.build_bwt(colls[0]), backend
+    rc = convert_cli.main([f"{d}/a.sga", f"{d}/a_rlo.native", "--rlo",
+                           "--device", "cpu", "--quiet"])
+    assert rc == 0, rc
+    assert inspect_cli.main([f"{d}/a.sga", f"{d}/a_rlo.native"]) == 0
+    # the device interleave and the range-parallel host interleave
+    import bwtmerge_tpu_torch as port
+    from bwtmerge_tpu_torch.native import interleave_streaming
+    fa = port.load_fmi(f"{d}/a.sga", "sga")
+    fb = port.load_fmi(f"{d}/b.sga", "sga")
+    merged = port.merge_fmi(fa, fb, port.MergeConfig(
+        device="cpu", interleave="device", temp_dir=d))
+    assert merged.runs == oracle.merge_collections(colls[:2])
+    from bwtmerge_tpu_torch.ops.search_np import build_rank_array
+    rv, rc_ = build_rank_array(
+        fa.rank_index, fa.alpha.C.astype(np.int64),
+        fb.rank_index, fb.alpha.C.astype(np.int64),
+        fa.sequences(), fb.sequences())
+    parts = list(port.coalesce_run_chunks(
+        port.interleave_stream_chunks_parallel(
+            fa.runs, fb.runs, iter([(rv[:9], rc_[:9]), (rv[9:], rc_[9:])]),
+            workers=2)))
+    assert type(fa.runs)(np.concatenate([p[0] for p in parts]),
+                         np.concatenate([p[1] for p in parts])) == merged.runs
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "bwtmerge_tpu"))
     assert not bad, bad
@@ -134,7 +186,7 @@ def _port_sources():
 
 def test_port_sources_name_no_import_of_the_jax_package():
     sources = _port_sources()
-    assert len(sources) > 45
+    assert len(sources) > 54
     import bwtmerge_tpu_torch
 
     modules = [m.name for m in pkgutil.walk_packages(
