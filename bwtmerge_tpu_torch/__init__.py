@@ -10,11 +10,15 @@ the trie search and the k-way fold, on hand-written CUDA kernels for the
 streamed-rank probe, the per-read walk and the read decode (csrc/, built
 with nvcc at first use).
 
-It covers, on one device: the two-input merge (walk or trie search, or the
-host search into the spill ladder), the k-way fold, `-v` verification, BWT
-construction from reads (ops/sa_torch.py, models/build.py, cli/bwt_build),
-the device interleave and the range-parallel host interleave, and the
-conversion and inspection CLIs; see ROADMAP.md for what is still to come.
+It covers everything the JAX package does: the two-input merge (walk or
+trie search, or the host search into the spill ladder), the k-way fold,
+`-v` verification, BWT construction from reads (ops/sa_torch.py,
+models/build.py, cli/bwt_build), the device interleave and the
+range-parallel host interleave, the conversion and inspection CLIs, and
+the multi-device paths: the merge's search over a mesh of devices
+(parallel/mesh.py), record tables split over a mesh (ops/rank_sharded.py),
+the sharded suffix sort (parallel/sort_distributed.py) and the
+multi-process merge over torch.distributed (parallel/distributed.py).
 """
 
 
@@ -79,6 +83,8 @@ _EXPORTS = {
     "interleave_torch": ".ops.interleave_torch",
     "interleave_stream_chunks_parallel": ".models.parallel_merge",
     "coalesce_run_chunks": ".parallel.distributed",
+    "make_mesh": ".parallel.mesh",
+    "multihost_merge_to_file": ".parallel.distributed",
 }
 
 __all__ = sorted(_EXPORTS)

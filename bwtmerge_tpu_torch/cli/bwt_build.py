@@ -1,15 +1,15 @@
 """bwt_build: construct a mergeable BWT from raw reads.
 
 Usage: python -m bwtmerge_tpu_torch.cli.bwt_build reads.txt output [-o fmt]
-       [--rlo] [--backend auto|torch|numpy] [--device cuda|cpu]
+       [--rlo] [--backend auto|torch|sharded|numpy] [--device cuda|cpu]
 
 Port of bwtmerge_tpu/cli/bwt_build.py.  The reference builds no BWT: its
 workflow needs ropebwt/ropebwt2 to produce per-sample BWTs before bwt_merge
 can run (paper.tex:274).  This closes the pipeline: plain reads (one per
 line, $ACGTN alphabet) -> BWT in any registered output format, with optional
 reverse-lexicographic (RLO) read reordering, the run-count-minimizing order
-the paper benchmarks (paper.tex:278).  --backend sharded exits with status
-1: it waits for ROADMAP A.10.
+the paper benchmarks (paper.tex:278).  --backend sharded spreads the suffix
+sort over every visible GPU (one CPU entry with --device cpu).
 """
 
 from __future__ import annotations
@@ -41,10 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=("auto", "torch", "sharded", "numpy"),
                    default="auto",
                    help="suffix sort backend: torch.sort prefix doubling on "
-                        "--device (torch), host numpy, or auto: the device "
-                        "when it is a CUDA device and the collection holds "
-                        "2^20 positions or more (default); 'sharded' is not "
-                        "in this port yet")
+                        "--device (torch), the same spread over every "
+                        "visible GPU (sharded), host numpy, or auto: the "
+                        "device when it is a CUDA device and the collection "
+                        "holds 2^20 positions or more (default)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the device build (default cuda)")
     p.add_argument("--no-sidecar", action="store_true",
@@ -62,10 +62,6 @@ def main(argv=None) -> int:
         print_formats(sys.stdout)
         return 0
     check_format(args.output_format, "bwt_build", "output")
-    if args.backend == "sharded":
-        print("bwt_build: not in this port yet: --backend sharded: ROADMAP "
-              "A.10", file=sys.stderr)
-        return 1
     if args.backend != "numpy":
         resolve_device(args.device)
 

@@ -15,14 +15,20 @@ sidecar under --search auto, no reads, reads of 2^14 or more characters,
 or --search trie) goes through the trie search, which needs no read text.
 --backend numpy searches on the host in -s sequence blocks and emits into
 the spill ladder that -r, -b and -m size, under -d; its -v counts on the
-host too.  On the torch backend of one device the rank array streams from
-the device and never reaches the ladder, so there -r, -b, -m and -s are
-accepted and unused, as in the JAX CLI.  --profile DIR writes a
-torch.profiler Chrome trace of every merge into DIR.
+host too.  On the torch backend the rank array streams from the device
+in blocks held in host memory up to -r x -m runs; past that they drain
+into the spill ladder under -d, compacted every -b MB; -s counts the
+trie's sequence blocks on a mesh.  --profile DIR writes a torch.profiler
+Chrome trace of every merge into DIR.
 
-Features of later port slices exit with status 1 and name their ROADMAP
-item: -t > 1 and --index-placement sharded.  Exit status 2 means the -v
-pattern counts of the output differ from the inputs' sum.
+-t N searches a pairwise merge over a mesh of N devices
+(parallel/mesh.py): cuda:0 .. cuda:N-1 with --device cuda, which exits
+with status 1 when fewer GPUs are visible, or N CPU entries with --device
+cpu.  --index-placement sharded splits both record tables over the mesh
+(ops/rank_sharded.py); 'auto' does so when they exceed --hbm-budget-mb.
+The k-way fold runs on one device whatever -t says, as in the JAX CLI.
+Exit status 2 means the -v pattern counts of the output differ from the
+inputs' sum.
 """
 
 from __future__ import annotations
@@ -51,8 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="bwt_merge", add_help=True,
         description="Merge BWTs of DNA read collections on a torch device.",
         epilog="Formats: native, plain_default, plain_sorted, rfm, sdsl, "
-               "ropebwt, sga.  Not in this port yet (exit status 1): -t N "
-               "with N > 1 and --index-placement sharded.")
+               "ropebwt, sga")
     p.add_argument("files", nargs="+", metavar="FILE",
                    help="input1 input2 [input3 ...] output")
     p.add_argument("-r", dest="run_buffer", type=int, default=None,
@@ -65,13 +70,22 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="N", help="number of merge buffers (default 6)")
     p.add_argument("-s", dest="sequence_blocks", type=int, default=None,
                    metavar="N",
-                   help="sequence blocks of the numpy backend's search "
-                        "(default 4)")
+                   help="sequence blocks of the numpy backend's search, and "
+                        "of the trie search on a mesh: more than -t take "
+                        "the dynamic block queue (default 4)")
+    p.add_argument("-t", dest="devices", type=int, default=None, metavar="N",
+                   help="search a pairwise merge over a mesh of N devices "
+                        "(default 1)")
+    p.add_argument("--index-placement", dest="index_placement",
+                   default="auto", choices=("auto", "replicated", "sharded"),
+                   help="index placement on a mesh: a whole index on every "
+                        "device, record tables split over the mesh, or by "
+                        "size (default auto)")
     p.add_argument("--hbm-budget-mb", dest="hbm_budget_mb", type=int,
                    default=None, metavar="MB",
-                   help="per-device memory budget driving the index "
-                        "placement on more than one device; one device "
-                        "always holds the whole index")
+                   help="per-device memory budget driving --index-placement "
+                        "auto (default: half of the smallest device's "
+                        "memory); one device always holds the whole index")
     p.add_argument("--backend", default="torch", choices=("numpy", "torch"),
                    help="compute backend: the torch device, or the host "
                         "search into the spill ladder (default torch)")
@@ -125,20 +139,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "when eligible (default)")
     p.add_argument("--quiet", action="store_true",
                    help="suppress progress output")
-    # later slices: accepted so that they can be refused by name
-    p.add_argument("-t", dest="devices", type=int, default=None, metavar="N",
-                   help=argparse.SUPPRESS)
-    p.add_argument("--index-placement", dest="index_placement",
-                   default="auto", choices=("auto", "replicated", "sharded"),
-                   help=argparse.SUPPRESS)
     return p
-
-
-def _later_slice(args):
-    """The ROADMAP item a requested feature waits for, or None."""
-    if (args.devices or 1) > 1 or args.index_placement == "sharded":
-        return "-t > 1 / --index-placement sharded: ROADMAP A.10"
-    return None
 
 
 def _load_checkpoint(ckpt_dir, inputs):
@@ -376,10 +377,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     inputs, output = args.files[:-1], args.files[-1]
-    later = _later_slice(args)
-    if later:
-        print(f"bwt_merge: not in this port yet: {later}", file=sys.stderr)
-        return 1
 
     in_formats = (args.input_formats.split(",") if args.input_formats
                   else ["native"])
@@ -411,7 +408,14 @@ def main(argv=None) -> int:
         config.hbm_budget_bytes = args.hbm_budget_mb << 20
     if args.device_blocks is not None:
         config.device_blocks = args.device_blocks
-    config.sanitize()
+    if args.devices is not None:
+        config.devices = args.devices
+    config.index_placement = args.index_placement
+    try:
+        config.sanitize()
+    except RuntimeError as e:       # a mesh of more GPUs than are visible
+        print(f"bwt_merge: -t {args.devices}: {e}", file=sys.stderr)
+        return 1
     run = _Run(args, inputs, in_formats, output, device, config)
 
     if run.verbose:

@@ -7,9 +7,10 @@ The libraries are loaded with ctypes; pointers and the stream travel as
 `c_void_p`.  Every C entry point returns `cudaGetLastError()` after its
 launch and a nonzero code raises here.
 
-Each kernel keeps a plain integer launch count (`Kernel.launches`), raised
-by one at every launch and nowhere else, so a run can show that its main
-path went through the kernels.
+Each kernel keeps an integer launch count (`Kernel.launches`), raised by
+one at every launch and nowhere else, so a run can show that its main path
+went through the kernels.  The mesh paths launch from one worker thread
+per shard, so the count is raised under a lock.
 
 Nothing here touches CUDA or runs `nvcc` at import time.
 """
@@ -106,19 +107,21 @@ class Kernel:
         self._error_fn = error_fn
         self._fn = None
         self._errstr = None
+        self._lock = threading.Lock()
         self.launches = 0
 
     def _load(self):
-        if self._fn is None:
-            build()
-            lib = ctypes.CDLL(_lib_path(self.source))
-            fn = getattr(lib, f"{self.name}_launch")
-            fn.argtypes = self._argtypes
-            fn.restype = ctypes.c_int
-            err = getattr(lib, self._error_fn)
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn, self._errstr = fn, err
+        with self._lock:
+            if self._fn is None:
+                build()
+                lib = ctypes.CDLL(_lib_path(self.source))
+                fn = getattr(lib, f"{self.name}_launch")
+                fn.argtypes = self._argtypes
+                fn.restype = ctypes.c_int
+                err = getattr(lib, self._error_fn)
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._fn, self._errstr = fn, err
         return self._fn
 
     def launch(self, *args) -> None:
@@ -130,7 +133,12 @@ class Kernel:
         if code != 0:
             raise RuntimeError(f"{self.name} launch failed: "
                                f"{self._errstr(code).decode()} ({code})")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
 
 
 _P = ctypes.c_void_p
@@ -156,7 +164,7 @@ KERNELS = (STREAMED_PROBE, WALK_EMIT, WALK_PLANES_BUILD, DECODE,
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 def launches() -> dict:

@@ -26,7 +26,7 @@ from ..utils.alphabet import DEFAULT_CHAR2COMP, Alphabet
 from . import oracle
 from .runs import RunArrays
 
-BACKENDS = ("auto", "torch", "numpy")
+BACKENDS = ("auto", "torch", "sharded", "numpy")
 
 
 def rlo_order(sequences: Sequence[np.ndarray]) -> np.ndarray:
@@ -73,7 +73,7 @@ def _use_device_build(backend: str, n_positions: int, device) -> bool:
 
 def build_from_reads(sequences: Sequence[np.ndarray], rlo: bool = False,
                      backend: str = "auto", device="cuda",
-                     stats: Optional[dict] = None
+                     stats: Optional[dict] = None, mesh=None
                      ) -> Tuple[RunArrays, np.ndarray]:
     """BWT of a read collection (comp values 1..sigma-1 per read).
 
@@ -84,8 +84,10 @@ def build_from_reads(sequences: Sequence[np.ndarray], rlo: bool = False,
     backend: 'numpy' (host prefix doubling, models/oracle.py), 'torch'
     (prefix doubling by torch.sort on `device`, ops/sa_torch.py), or 'auto'
     (`device` when it is a CUDA device and the collection holds 2^20
-    positions or more; the host otherwise).  A collection spread over
-    several devices ('sharded') is not in this port yet: ROADMAP A.10.
+    positions or more; the host otherwise), or 'sharded' (the suffix sort
+    spread over `mesh`, default every GPU, or one CPU entry for
+    device='cpu': parallel/sort_distributed.py, for collections whose
+    suffix array exceeds one device's memory).
     `sequences` may be a list of arrays or a packed (flat, lengths) tuple.
     `stats`, when given, receives the device build's positions, rounds and
     seconds (ops/sa_torch.build_bwt_device).
@@ -94,11 +96,22 @@ def build_from_reads(sequences: Sequence[np.ndarray], rlo: bool = False,
 
     if backend not in BACKENDS:
         raise ValueError(
-            f"backend must be one of {'/'.join(BACKENDS)}, got {backend!r}"
-            + (" (not in this port yet: ROADMAP A.10)"
-               if backend == "sharded" else ""))
+            f"backend must be one of {'/'.join(BACKENDS)}, got {backend!r}")
     flat, lengths = pack_collection(sequences)
     n_positions = int(lengths.sum()) + lengths.size
+    if backend == "sharded":
+        from ..ops.sa_torch import _reorder_packed
+        from ..parallel.mesh import make_mesh
+        from ..parallel.sort_distributed import (build_bwt_sharded,
+                                                 rlo_order_sharded)
+
+        mesh = mesh or make_mesh(device=device)
+        if rlo:
+            order = rlo_order_sharded((flat, lengths), mesh)
+            flat, lengths = _reorder_packed(flat, lengths, order)
+        else:
+            order = np.arange(lengths.size, dtype=np.int64)
+        return build_bwt_sharded((flat, lengths), mesh), order
     if _use_device_build(backend, n_positions, device):
         from ..ops.sa_torch import (_reorder_packed, build_bwt_device,
                                     rlo_order_device)

@@ -20,14 +20,26 @@ and searches the trie otherwise; 'walk' falls to the trie only where the
 walk cannot take B (no reads, or a read of WALK_MAX_LEN or more
 characters); 'trie' never looks at a sidecar.  A search that fails on the
 device raises: no route falls back to another after an exception.
+
+On a mesh of more than one entry (MergeConfig.devices: a count, or a list
+of torch devices that may repeat one) the search takes the JAX package's
+multi-device routes in its order (parallel/mesh.py, ops/rank_sharded.py):
+the walk with B's lanes dealt over the shards; else, with the index
+placement 'sharded', both record tables split over the mesh, searched
+block by block into the spill ladder; else, with more sequence blocks than
+entries, the dynamic block queue into the ladder; else one sequence block
+a shard.  The pairs that device routes hold in host memory are bounded by
+run_buffer_runs * merge_buffers runs; past that, blocks drain into the
+ladder's spill files under temp_dir (ops/ra_stream.BlockedRA).
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import sys
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
@@ -55,12 +67,20 @@ class MergeConfig:
     thread_buffer_mb: emitted runs compacted every so many megabytes, 16 B
                    a run (-b)
     sequence_blocks: blocks of B's sequences the numpy backend searches
-                   one after the other (-s)
-    hbm_budget_bytes: per-device memory budget that chooses the index
-                   placement on more than one device (0 = default); on one
-                   device the placement is always replicated
-    temp_dir:      scratch directory (-d): the k-way fold's spill files and
-                   the chain's intermediate folds
+                   one after the other (-s); on a mesh, more blocks than
+                   entries take the dynamic block queue
+    devices:       the search's mesh (-t): a count (make_mesh(devices,
+                   device): cuda:0 .. cuda:n-1, or n CPU entries), or a list
+                   of torch devices, which may repeat a device
+    index_placement: on more than one entry, 'replicated' (every entry
+                   holds the whole index), 'sharded' (record tables split
+                   over the mesh, ops/rank_sharded.py) or 'auto' (sharded
+                   when the two tables exceed hbm_budget_bytes)
+    hbm_budget_bytes: per-device memory budget of the 'auto' placement
+                   (0 = DEVICE_MEMORY_SHARE of the smallest device's
+                   memory); one entry always holds the whole index
+    temp_dir:      scratch directory (-d): spill files of the rank array
+                   and of the k-way fold, the chain's intermediate folds
     device_blocks: blocks of B's reads searched one after the other, so
                    block k's rank-array copy overlaps block k+1's search
                    (0 = auto: 2 once B holds 16 Mbp)
@@ -81,6 +101,8 @@ class MergeConfig:
     thread_buffer_mb: int = 256
     merge_buffers: int = 6
     sequence_blocks: int = 4
+    devices: Union[int, Sequence] = 1
+    index_placement: str = "auto"
     hbm_budget_bytes: int = 0
     temp_dir: str = "."
     device_blocks: int = 0
@@ -103,9 +125,30 @@ class MergeConfig:
         if self.interleave not in ("native", "device"):
             raise ValueError(
                 f"interleave must be native/device, got {self.interleave!r}")
+        if self.index_placement not in ("auto", "replicated", "sharded"):
+            raise ValueError(
+                f"index_placement must be auto/replicated/sharded, "
+                f"got {self.index_placement!r}")
+        if isinstance(self.devices, (list, tuple)):
+            if not self.devices:
+                raise ValueError("devices: empty mesh")
+        else:
+            self.devices = max(1, int(self.devices))
         if self.backend == "torch" or self.interleave == "device":
             resolve_device(self.device)
+            self.mesh()
         return self
+
+    def mesh(self) -> list:
+        """The search's mesh: [device] for devices=1, make_mesh(devices,
+        device) for a larger count, the list itself otherwise."""
+        from ..parallel.mesh import make_mesh, mesh_devices
+
+        if isinstance(self.devices, (list, tuple)):
+            return mesh_devices(self.devices)
+        if self.devices == 1:
+            return [resolve_device(self.device)]
+        return make_mesh(self.devices, self.device)
 
 
 def _merged_alpha(a: FMI, b: FMI):
@@ -343,11 +386,13 @@ def _write_decoded_sidecar(path: str, creads) -> None:
     write_sidecar(path, lens, flat)
 
 
-def walk_creads(b: FMI, config: MergeConfig) -> Optional[np.ndarray]:
+def walk_creads(b: FMI, config: MergeConfig,
+                device=None) -> Optional[np.ndarray]:
     """B's read text in walk layout, or None where the merge searches the
     trie: search='trie'; B holds no reads; under 'auto', B has no sidecar
-    that passes the consistency gate; under 'walk', the device decode meets
-    a read of WALK_MAX_LEN or more characters."""
+    that passes the consistency gate; under 'walk', the device decode (on
+    `device`, default config.device) meets a read of WALK_MAX_LEN or more
+    characters."""
     from ..ops.decode_torch import decode_creads
 
     if config.search == "trie" or b.sequences() == 0:
@@ -361,8 +406,9 @@ def walk_creads(b: FMI, config: MergeConfig) -> Optional[np.ndarray]:
     if creads is None:
         if config.search != "walk":
             return None
-        creads = decode_creads(b.device_index(config.device), b.sequences(),
-                               b.size(), max_len_cap=WALK_MAX_LEN)
+        creads = decode_creads(b.device_index(device or config.device),
+                               b.sequences(), b.size(),
+                               max_len_cap=WALK_MAX_LEN)
         if creads is None:
             return None
         b.attach_creads(creads)
@@ -387,23 +433,39 @@ def _n_blocks(config: MergeConfig, b: FMI, units: int,
     return n_blk
 
 
+def _new_spill(config: MergeConfig):
+    """The spill ladder the flags size: compact_every ~ thread buffer (-b,
+    16 B a run), spill threshold ~ the merge buffers' total (-r * -m),
+    files under temp_dir (-d); the reference's buffer hierarchy,
+    fmi.h:49-51."""
+    from .spill import RankArraySpill
+
+    compact_every = config.thread_buffer_mb * 1024 * 1024 // 16  # 16 B/run
+    return RankArraySpill(
+        temp_dir=config.temp_dir,
+        spill_threshold_runs=config.run_buffer_runs * config.merge_buffers,
+        compact_every=max(compact_every, 1024))
+
+
+def _blocked_ra(config: MergeConfig):
+    """The device routes' rank array: blocks held while their runs stay
+    within run_buffer_runs * merge_buffers (-r, -m), the rest drained into
+    the spill ladder (ops/ra_stream.BlockedRA)."""
+    from ..ops.ra_stream import BlockedRA
+
+    return BlockedRA(config.run_buffer_runs * config.merge_buffers,
+                     lambda: _new_spill(config))
+
+
 def _build_ra_spill(a: FMI, b: FMI, config: MergeConfig):
     """The numpy backend's search phase: B's sequences in
     config.sequence_blocks blocks through the host trie search
     (ops/search_np.py; the reference's sequence-block decomposition,
-    fmi.cpp:351-357), each block's runs emitted into a spill-backed
-    accumulator.  Its sizes map the reference's buffer hierarchy
-    (fmi.h:49-51): compact_every ~ thread buffer, spill threshold ~ the
-    merge buffers' total."""
+    fmi.cpp:351-357), each block's runs emitted into the spill ladder."""
     from ..ops import search_np
     from ..utils.ranges import get_bounds
-    from .spill import RankArraySpill
 
-    compact_every = config.thread_buffer_mb * 1024 * 1024 // 16  # 16 B/run
-    spill = RankArraySpill(
-        temp_dir=config.temp_dir,
-        spill_threshold_runs=config.run_buffer_runs * config.merge_buffers,
-        compact_every=max(compact_every, 1024))
+    spill = _new_spill(config)
     for blk in get_bounds((0, b.sequences() - 1), config.sequence_blocks):
         values, counts = search_np.build_rank_array(
             a.rank_index, a.alpha.C.astype(np.int64),
@@ -415,34 +477,128 @@ def _build_ra_spill(a: FMI, b: FMI, config: MergeConfig):
 
 
 def _build_ra(a: FMI, b: FMI, config: MergeConfig):
-    """The search phase.  backend='numpy': _build_ra_spill.  Otherwise on
-    config.device: the walk over B's read text where walk_creads gives it,
-    the trie search otherwise.  Either way B's reads go in blocks sized
-    before the search, and the stream is primed so the first chunk exists
-    before any output is written."""
+    """The search phase.  backend='numpy': _build_ra_spill.  On more than
+    one mesh entry: _build_ra_mesh.  Otherwise on config.device: the walk
+    over B's read text where walk_creads gives it, the trie search
+    otherwise.  Either way B's reads go in blocks sized before the search,
+    into a BlockedRA bounded by the ladder's flags, and the stream is
+    primed so the first chunk exists before any output is written."""
     from ..ops.ra_stream import blocked_walk
     from ..ops.search_torch import blocked_search
     from ..ops.walk_torch import build_walk_planes
 
     if config.backend == "numpy":
         return _build_ra_spill(a, b, config)
+    mesh = config.mesh()
+    if len(mesh) > 1:
+        return _build_ra_mesh(a, b, config, mesh)
+    ra = _blocked_ra(config)
     creads = walk_creads(b, config)
     index = a.device_index(config.device)
     if creads is not None:
         max_len, r_total = creads.shape
-        ra = blocked_walk(index, build_walk_planes(index.rec), creads,
-                          _n_blocks(config, b, r_total, max_len),
-                          a.sequences())
+        blocked_walk(index, build_walk_planes(index.rec), creads,
+                     _n_blocks(config, b, r_total, max_len), a.sequences(),
+                     ra=ra)
     else:
         # a block emits at most its bases plus its sequences; the average
         # read length stands in for the block's own
         seqs = b.sequences()
         per_read = b.size() // max(1, seqs) + 2
-        ra = blocked_search(index, b.device_index(config.device),
-                            a.sequences(), seqs,
-                            _n_blocks(config, b, seqs, per_read),
-                            config.streamed)
+        blocked_search(index, b.device_index(config.device), a.sequences(),
+                       seqs, _n_blocks(config, b, seqs, per_read),
+                       config.streamed, ra=ra)
     return _prime_stream(ra)
+
+
+def _build_ra_mesh(a: FMI, b: FMI, config: MergeConfig, mesh):
+    """The search phase on a mesh of more than one entry, by the JAX
+    package's routes in its order (bwtmerge_tpu/models/merge.py:311-408,
+    :481-492):
+
+    1. the walk (parallel/mesh.sharded_walk_packed_ra) where walk_creads
+       gives B's reads and a shard's emissions fit WALK_BLOCK_EMITS;
+    2. placement 'sharded': _sharded_index_search into the spill ladder;
+    3. more sequence blocks than entries: the dynamic block queue
+       (parallel/mesh.dynamic_block_search) into the spill ladder;
+    4. otherwise one sequence block a shard (parallel/mesh.
+       sharded_packed_ra).
+
+    B's reads are decoded, under search='walk', on the first entry."""
+    from ..parallel.mesh import (dynamic_block_search, sharded_packed_ra,
+                                 sharded_walk_packed_ra)
+
+    n_dev = len(mesh)
+    creads = walk_creads(b, config, mesh[0])
+    if creads is not None:
+        max_len, r_total = creads.shape
+        if max_len * -(-r_total // n_dev) <= WALK_BLOCK_EMITS:
+            return _prime_stream(sharded_walk_packed_ra(
+                a.device_index(mesh[0]), creads, mesh=mesh,
+                a_sequences=a.sequences(), ra=_blocked_ra(config)))
+    if _resolve_placement(config, a, b, mesh) == "sharded":
+        return _sharded_index_search(a, b, config, mesh, _new_spill(config))
+    a_idx, b_idx = a.device_index(mesh[0]), b.device_index(mesh[0])
+    if config.sequence_blocks > n_dev:
+        spill = _new_spill(config)
+        dynamic_block_search(a_idx, b_idx, a.sequences(), b.sequences(),
+                             spill.emit, n_blocks=config.sequence_blocks,
+                             mesh=mesh, streamed=config.streamed)
+        return spill
+    return _prime_stream(sharded_packed_ra(
+        a_idx, b_idx, a.sequences(), b.sequences(), mesh=mesh,
+        streamed=config.streamed, ra=_blocked_ra(config)))
+
+
+DEVICE_MEMORY_SHARE = 0.5   # of a device's memory the two record tables may
+                            # take under the 'auto' placement; the rest is
+                            # the search's frontier, emissions and sorts
+
+
+def _device_memory(dev) -> int:
+    """Bytes of memory of a mesh entry: the card's, or the host's for a CPU
+    entry."""
+    import torch
+
+    if dev.type == "cuda":
+        return int(torch.cuda.get_device_properties(dev).total_memory)
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def _resolve_placement(config: MergeConfig, a: FMI, b: FMI, mesh) -> str:
+    """'replicated' or 'sharded' from the config and, under 'auto', the
+    record tables' bytes against the per-device budget (under replication
+    both tables live on every entry, so the budget compares their SUM).
+    The default budget is DEVICE_MEMORY_SHARE of the smallest entry's
+    memory, not the JAX package's 12 GiB of a TPU v5e chip."""
+    from ..ops.rank_torch import BLK, REC
+
+    placement = config.index_placement
+    if len(mesh) <= 1:
+        return "replicated"
+    if placement != "auto":
+        return placement
+    budget = config.hbm_budget_bytes or int(
+        DEVICE_MEMORY_SHARE * min(_device_memory(d) for d in set(mesh)))
+    rec_bytes = ((a.size() + b.size()) // BLK + 2) * REC * 4
+    return "sharded" if rec_bytes > budget else "replicated"
+
+
+def _sharded_index_search(a: FMI, b: FMI, config: MergeConfig, mesh, spill):
+    """Search with BOTH record tables block-sharded over the mesh
+    (ops/rank_sharded.py): each entry holds only its slab.  B's sequences
+    go in config.sequence_blocks blocks, each block's runs into the spill
+    ladder."""
+    from ..ops.rank_sharded import ShardedFMIndex, wavefront_search_sharded
+    from ..utils.ranges import get_bounds
+
+    a_idx = ShardedFMIndex.build(a.runs, a.alpha.counts(), mesh=mesh)
+    b_idx = ShardedFMIndex.build(b.runs, b.alpha.counts(), mesh=mesh)
+    for sp, ep in get_bounds((0, b.sequences() - 1), config.sequence_blocks):
+        values, counts, _ = wavefront_search_sharded(a_idx, b_idx, sp, ep,
+                                                     a.sequences())
+        spill.emit(values, counts)
+    return spill
 
 
 def _interleave(a_runs, b_runs, ra_values, ra_counts, config: MergeConfig):

@@ -330,12 +330,22 @@ def batch_count(index: DeviceFMIndex, patterns, char2comp: np.ndarray,
     chunks of up to `chunk` patterns, pad rows are 1-char dummies, and
     batches of 2^14 or more take the streamed search (the hand-written
     probe kernel on CUDA)."""
-    from .rank_streamed import backward_search_streamed
-
     if not patterns:
         return np.zeros(0, dtype=np.int64)
-    comps, comp_lens = encode_patterns(patterns, char2comp)
+    return count_encoded(index, *encode_patterns(patterns, char2comp), chunk)
+
+
+def count_encoded(index: DeviceFMIndex, comps: np.ndarray,
+                  comp_lens: np.ndarray, chunk: int = 1 << 16) -> np.ndarray:
+    """batch_count of patterns already encoded: comps int[Q, max_len] (comp
+    values, the first comp_lens[q] of row q read), comp_lens int[Q]."""
+    from .rank_streamed import backward_search_streamed
+
+    comps = np.asarray(comps)
+    comp_lens = np.asarray(comp_lens)
     q, max_len = comps.shape
+    if q == 0:
+        return np.zeros(0, dtype=np.int64)
     out = np.empty(q, dtype=np.int64)
     q_pad = min(chunk, 1 << max(6, (q - 1).bit_length()))
     search = (backward_search_streamed if q_pad >= STREAMED_MIN_BATCH

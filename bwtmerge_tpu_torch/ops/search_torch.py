@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..utils.ranges import get_bounds
-from .ra_stream import Block, BlockedRA
+from .ra_stream import BlockedRA
 from .rank_streamed import streamed_probe
 from .rank_torch import LANES, SIGMA, DeviceFMIndex
 
@@ -220,15 +220,15 @@ def search_block_runs(a_idx: DeviceFMIndex, b_idx: DeviceFMIndex,
 
 def blocked_search(a_idx: DeviceFMIndex, b_idx: DeviceFMIndex,
                    a_sequences: int, b_sequences: int, n_blocks: int,
-                   streamed: Optional[bool] = None) -> BlockedRA:
+                   streamed: Optional[bool] = None,
+                   ra: Optional[BlockedRA] = None) -> BlockedRA:
     """Search B's sequences in `n_blocks` blocks (get_bounds), each reduced
     on the device and sent on its way to the host before the next block is
-    searched (ra_stream.Block)."""
-    blocks = []
+    searched, into `ra` (a BlockedRA that holds every block when None)."""
+    ra = BlockedRA() if ra is None else ra
     for rng in get_bounds((0, b_sequences - 1), max(1, n_blocks)):
-        blocks.append(Block(*search_block_runs(a_idx, b_idx, rng, a_sequences,
-                                               streamed)))
-    return BlockedRA(blocks)
+        ra.add(*search_block_runs(a_idx, b_idx, rng, a_sequences, streamed))
+    return ra
 
 
 def build_rank_array_torch(a, b, config, sequence_blocks: int = 1,

@@ -79,16 +79,39 @@ After these, the phases of construction, the interleaves and the CLIs:
     medium pair's rank array through the serial host chain and through
     interleave_stream_chunks_parallel + coalesce_run_chunks and the writer,
     byte-identical files, both chains' seconds;
-14. bwt_merge --profile DIR on the small pair must leave one non-empty
+
+Then the multi-device paths, on meshes that repeat the one card:
+
+14. the rank array's budget: the medium walk merge with -r 1 -m 2 -d DIR
+    (2 Mi runs held), in its own blocking and in eight read blocks; spill
+    files under DIR, the main path's bytes, the peak of the pinned host
+    bytes alive beside the main path's;
+15. meshes: the medium merge over [cuda:0] * 2 and * 4 through the four
+    routes of a mesh (the walk, the trie a block a shard, the dynamic
+    queue of 16 blocks, the record tables split over the mesh), each file
+    byte-identical to the main path's, K2 and K1 launched once a shard or
+    more where their route runs (walk_planes_build once: one distinct
+    device), per-shard runs and search seconds; sharded_backward_search
+    of the patterns equal to the single-device counts;
+16. bwt_merge -t 2 --device cuda: status 1 naming torch.cuda.device_count()
+    on one GPU, the main path's bytes on two or more;
+17. a torch.distributed world of two processes on gloo, each on the card
+    (this script again, as `--multihost-worker RANK PORT A B DIR DEVICE`):
+    the medium merge into SGA and native, each byte-identical to the
+    single-device merge's; the exchange's figures per process;
+18. build_bwt_sharded of the medium A over [cuda:0] * 4, byte-identical to
+    the single-device build, both timed; then one line of what one card
+    cannot show (copies between GPUs, NCCL);
+19. bwt_merge --profile DIR on the small pair must leave one non-empty
     trace and the small merge's bytes (last of all: a profiler, once started,
     leaves its tracing library loaded, and later launches pay for it).
 
-Phases 7 and 9 also log the pinned host bytes that the rank array's blocks
-held (ops/ra_stream.py), beside B's size.
+Phases 7, 9, 14 and 15 also log the pinned host bytes that the rank
+array's blocks held (ops/ra_stream.py), beside B's size.
 
-The launch counts are set to 0 just before each main path and read just
-after.  The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}.  Fixtures are cached in .smoke_cache/.
+The launch counts are set to 0 just before each main path and each
+multi-device phase and read just after.  The second-to-last line is the
+kernels' JSON record, the last line {"ok": true, "device": {...}}.  Fixtures are cached in .smoke_cache/.
 The script imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -973,25 +996,55 @@ def small_fold(device, fixtures: Fixtures) -> None:
         f"numpy reference left fold {t2 - t1:.3f} s)")
 
 
-PINNED = {"bytes": 0}     # pinned host bytes of the rank array's blocks
+# pinned host bytes of the rank array's blocks: alive now, and the most
+# alive at once since the last reset (run_cli resets it)
+PINNED = {"live": 0, "bytes": 0}
 
 
 def count_pinned_blocks() -> None:
     """Wrap ops/ra_stream.Block so that every block adds the bytes of its
-    pinned host tensors to PINNED.  A search makes all its blocks before the
-    merge reads the first, and each is held until the stream ends, so the
-    sum over a merge is that merge's peak."""
+    pinned host tensors to PINNED["live"] while they exist, and PINNED
+    ["bytes"] keeps the peak.  Blocks a BlockedRA holds live until the
+    stream ends; a block it drains to the spill ladder is freed once
+    drained."""
+    import threading
+    import weakref
+
     from bwtmerge_tpu_torch.ops import ra_stream
 
     plain = ra_stream.Block.__init__
+    lock = threading.Lock()
+
+    def release(n):
+        with lock:
+            PINNED["live"] -= n
 
     def counting(self, values, counts):
         plain(self, values, counts)
         for t in (self.values, self.counts):
             if t.is_pinned():
-                PINNED["bytes"] += t.numel() * t.element_size()
+                n = t.numel() * t.element_size()
+                with lock:
+                    PINNED["live"] += n
+                    PINNED["bytes"] = max(PINNED["bytes"], PINNED["live"])
+                weakref.finalize(t, release, n)
 
     ra_stream.Block.__init__ = counting
+
+
+def drive(fn) -> tuple:
+    """fn() with the kernels' launch counts set to 0 just before and read
+    just after: (fn's result, launches, wall seconds)."""
+    import gc
+
+    from bwtmerge_tpu_torch import kernels
+
+    gc.collect()                 # blocks of earlier phases free their pins
+    kernels.reset_launches()
+    PINNED["bytes"] = PINNED["live"]
+    t0 = time.monotonic()
+    out = fn()
+    return out, kernels.launches(), time.monotonic() - t0
 
 
 def run_cli(argv, cli: str = "bwt_merge") -> tuple:
@@ -1000,17 +1053,10 @@ def run_cli(argv, cli: str = "bwt_merge") -> tuple:
     (exit status, stdout, stderr, launches, wall seconds)"""
     import importlib
 
-    from bwtmerge_tpu_torch import kernels
-
     main_fn = importlib.import_module(f"bwtmerge_tpu_torch.cli.{cli}").main
     buf_out, buf_err = io.StringIO(), io.StringIO()
-    kernels.reset_launches()
-    PINNED["bytes"] = 0
-    t0 = time.monotonic()
     with contextlib.redirect_stdout(buf_out), contextlib.redirect_stderr(buf_err):
-        rc = main_fn(argv)
-    wall = time.monotonic() - t0
-    counts = kernels.launches()
+        rc, counts, wall = drive(lambda: main_fn(argv))
     sys.stdout.write(buf_out.getvalue())
     sys.stdout.write(buf_err.getvalue())
     return rc, buf_out.getvalue(), buf_err.getvalue(), counts, wall
@@ -1215,18 +1261,12 @@ def packed_reads(m: int, seed: int) -> tuple:
             np.full(m, READ_LEN, np.int64))
 
 
-def cli_gaps(device, fixtures: Fixtures) -> None:
-    """The merge CLI's --backend numpy with a spilling ladder, bwt_convert's
-    round trip, bwt_inspect's totals, and the device interleave, all on the
-    small pair."""
-    import bwtmerge_tpu_torch as port
+@contextlib.contextmanager
+def spill_files_made():
+    """Within the block, every spill file the rank-array ladder writes is
+    listed as (directory, bytes)."""
     from bwtmerge_tpu_torch.models import spill
 
-    a_path, b_path = fixtures.get("small_a"), fixtures.get("small_b")
-    d = os.path.dirname(a_path)
-    want = os.path.join(d, "merged_port.sga")          # small_merge's
-    spill_dir = os.path.join(d, "spill")
-    os.makedirs(spill_dir, exist_ok=True)
     made = []
     plain = spill.RankArraySpill._spill
 
@@ -1235,15 +1275,30 @@ def cli_gaps(device, fixtures: Fixtures) -> None:
         path = self._files[-1].path
         made.append((os.path.dirname(path), os.path.getsize(path)))
 
-    out = os.path.join(d, "merged_numpy.sga")
     spill.RankArraySpill._spill = counting
     try:
+        yield made
+    finally:
+        spill.RankArraySpill._spill = plain
+
+
+def cli_gaps(device, fixtures: Fixtures) -> None:
+    """The merge CLI's --backend numpy with a spilling ladder, bwt_convert's
+    round trip, bwt_inspect's totals, and the device interleave, all on the
+    small pair."""
+    import bwtmerge_tpu_torch as port
+
+    a_path, b_path = fixtures.get("small_a"), fixtures.get("small_b")
+    d = os.path.dirname(a_path)
+    want = os.path.join(d, "merged_port.sga")          # small_merge's
+    spill_dir = os.path.join(d, "spill")
+    os.makedirs(spill_dir, exist_ok=True)
+    out = os.path.join(d, "merged_numpy.sga")
+    with spill_files_made() as made:
         rc, _, _, counts, wall = run_cli(
             [a_path, b_path, out, "-i", "sga", "-o", "sga", "--backend",
              "numpy", "-r", "0", "-m", "2", "-b", "0", "-d", spill_dir,
              "--quiet"])
-    finally:
-        spill.RankArraySpill._spill = plain
     if rc != 0 or not made or any(x[0] != spill_dir for x in made):
         raise AssertionError(f"--backend numpy: status {rc}, spill files "
                              f"{made}")
@@ -1480,9 +1535,296 @@ def medium_interleaves(device, fixtures: Fixtures, workers=(3, 6)) -> dict:
     return result
 
 
+# -- the multi-device paths ---------------------------------------------------------
+
+
+def p5_spill(device, fixtures: Fixtures, run_buffer: str = "1") -> dict:
+    """The medium walk merge with -r 1 -m 2 (a budget of 2 Mi runs) and -d:
+    the rank array's blocks past the budget drain into spill files under
+    -d, and the output is the main path's, byte for byte.  Once with the
+    merge's own blocking (one block of 7.37 M runs: it drains, and the peak
+    is that one block) and once in eight read blocks (--device-blocks 8:
+    two are held, the rest drain one at a time).  The peak of the pinned
+    host bytes alive is printed beside the main path's."""
+    a_path, b_path = fixtures.get("a"), fixtures.get("b")
+    d = os.path.dirname(a_path)
+    want = os.path.join(d, "merged.sga")                # the main path's
+    spill_dir = os.path.join(d, "spill_p5")
+    os.makedirs(spill_dir, exist_ok=True)
+    result = {}
+    for blocks in (None, 8):
+        out = os.path.join(d, "merged_p5.sga")
+        argv = [a_path, b_path, out, "-i", "sga", "-o", "sga", "-r",
+                run_buffer, "-m", "2", "-d", spill_dir, "--device",
+                str(device), "--quiet"]
+        if blocks:
+            argv += ["--device-blocks", str(blocks)]
+        with spill_files_made() as made:
+            rc, _, _, counts, wall = run_cli(argv)
+        if rc != 0 or not made or os.listdir(spill_dir) \
+                or any(x[0] != spill_dir for x in made):
+            raise AssertionError(f"-r {run_buffer} -m 2: status {rc}, spill files "
+                                 f"{made}, left {os.listdir(spill_dir)}")
+        same_bytes(out, want, "-r 1 -m 2 with a spilled rank array")
+        os.remove(out)
+        result[f"device_blocks_{blocks or 'auto'}"] = {
+            "spill_files": len(made), "spill_bytes": sum(x[1] for x in made),
+            "peak_pinned_host_bytes": PINNED["bytes"], "wall_s": wall,
+            "launches": counts}
+    result["main_path_peak_pinned_host_bytes"] = None     # set by main()
+    return result
+
+
+def mesh_routes(device, fixtures: Fixtures, sizes=(2, 4)) -> dict:
+    """The medium merge over meshes that repeat the one card, [cuda:0] * 2
+    and * 4, through the four routes of models/merge._build_ra_mesh: the
+    walk (B has its sidecar), the trie with one sequence block a shard
+    (sharded_packed_ra), the trie with 16 blocks (the dynamic queue) and
+    the record tables split over the mesh (index_placement='sharded').
+    Every file byte-identical to the main path's; the launches of each
+    route read just after it.  Then sharded_backward_search on the smoke's
+    patterns, its counts equal to the single-device counts."""
+    import bwtmerge_tpu_torch as port
+    from bwtmerge_tpu_torch.ops.rank_torch import batch_count, encode_patterns
+    from bwtmerge_tpu_torch.parallel import mesh as pmesh
+
+    a_path, b_path = fixtures.get("a"), fixtures.get("b")
+    d = os.path.dirname(a_path)
+    want = os.path.join(d, "merged.sga")
+    a, b = port.load_fmi(a_path, "sga"), port.load_fmi(b_path, "sga")
+    routes = {"walk": dict(),
+              "trie_one_block_a_shard": dict(search="trie"),
+              "trie_dynamic_queue": dict(search="trie", sequence_blocks=16),
+              "sharded_index": dict(search="trie",
+                                    index_placement="sharded")}
+    result = {}
+    launches = {}
+    shard_stats = {}
+    plain = {}
+    for fn in ("sharded_walk_packed_ra", "sharded_packed_ra",
+               "dynamic_block_search"):
+        # each route's per-shard figures, through the stats its function
+        # already fills
+        plain[fn] = getattr(pmesh, fn)
+        setattr(pmesh, fn, lambda *args, _f=plain[fn], **kw:
+                _f(*args, stats=shard_stats, **kw))
+    for n in sizes:
+        mesh = [device] * n
+        for name, kw in routes.items():
+            kw = dict(kw)
+            if name == "trie_one_block_a_shard":
+                kw["sequence_blocks"] = n
+            out = os.path.join(d, f"merged_mesh_{n}_{name}.sga")
+            config = port.MergeConfig(device=str(device), devices=mesh,
+                                      temp_dir=d, **kw)
+            shard_stats.clear()
+            try:
+                _, counts, wall = drive(lambda: port.merge_fmi_to_file(
+                    a, b, out, "sga", config))
+            except BaseException:
+                for fn, f in plain.items():
+                    setattr(pmesh, fn, f)
+                raise
+            same_bytes(out, want, f"mesh of {n}, {name}")
+            os.remove(out)
+            need = {"walk": {"walk_emit": n, "walk_planes_build": 1},
+                    "trie_one_block_a_shard": {"streamed_probe": n},
+                    "trie_dynamic_queue": {"streamed_probe": n},
+                    "sharded_index": {}}[name]
+            if device.type == "cuda" and any(counts[k] < v
+                                             for k, v in need.items()):
+                raise AssertionError(f"mesh of {n}, {name}: launches "
+                                     f"{counts}, needs at least {need}")
+            launches[f"mesh_{n}_{name}"] = counts
+            result[f"mesh_{n}_{name}"] = {
+                "search_s": config.timer.phases["search (rank array)"],
+                "wall_s": wall, "launches": counts,
+                "peak_pinned_host_bytes": PINNED["bytes"],
+                **shard_stats}
+            log(f"mesh of {n} x {device}, {name}: byte-identical, "
+                f"{json.dumps(result[f'mesh_{n}_{name}'])}")
+    for fn, f in plain.items():
+        setattr(pmesh, fn, f)
+
+    pat_path = os.path.join(d, f"patterns_{N_PATTERNS}.txt")
+    with open(pat_path) as f:
+        patterns = f.read().split()
+    merged = port.load_fmi(want, "sga")
+    idx = merged.device_index(device)
+    single = batch_count(idx, patterns, merged.alpha.char2comp)
+    comps, lens = encode_patterns(patterns, merged.alpha.char2comp)
+    for n in sizes:
+        got, counts, wall = drive(lambda: pmesh.sharded_backward_search(
+            idx, comps, lens, mesh=[device] * n))
+        if not np.array_equal(got, single):
+            raise AssertionError(f"sharded_backward_search over {n} shards "
+                                 f"differs from the single-device counts")
+        if device.type == "cuda" and counts["streamed_probe"] < n:
+            raise AssertionError(f"sharded_backward_search over {n} shards "
+                                 f"launched {counts}")
+        launches[f"mesh_{n}_verify"] = counts
+        result[f"mesh_{n}_verify"] = {"patterns": len(patterns),
+                                      "occurrences": int(got.sum()),
+                                      "wall_s": wall, "launches": counts}
+    log(f"sharded_backward_search, {len(patterns)} patterns over meshes of "
+        f"{sizes}: equal to the single-device counts "
+        f"({int(single.sum())} occurrences)")
+    result["launches"] = launches
+    return result
+
+
+def cli_t2(device, fixtures: Fixtures) -> dict:
+    """bwt_merge -t 2 --device cuda: with one GPU it exits 1 naming the
+    count torch sees; with two or more it writes the main path's bytes."""
+    import torch
+
+    a_path, b_path = fixtures.get("a"), fixtures.get("b")
+    d = os.path.dirname(a_path)
+    out = os.path.join(d, "merged_t2.sga")
+    rc, _, err, counts, wall = run_cli([a_path, b_path, out, "-i", "sga",
+                                        "-o", "sga", "-t", "2", "--device",
+                                        "cuda", "--quiet"])
+    visible = torch.cuda.device_count()
+    if visible < 2:
+        if rc != 1 or f"torch.cuda.device_count() is {visible}" not in err \
+                or os.path.exists(out):
+            raise AssertionError(f"-t 2 on {visible} GPU: status {rc}, "
+                                 f"stderr {err!r}")
+    else:
+        if rc != 0:
+            raise AssertionError(f"-t 2 on {visible} GPUs exited {rc}")
+        same_bytes(out, os.path.join(d, "merged.sga"), "-t 2")
+        os.remove(out)
+    log(f"bwt_merge -t 2 --device cuda with {visible} GPU(s): status {rc}")
+    return {"visible_gpus": visible, "status": rc, "wall_s": wall,
+            "launches": counts}
+
+
+def multihost_worker(rank: int, port_no: int, a_path: str, b_path: str,
+                     out_dir: str, device: str) -> None:
+    """One rank of the two-process merge (run as `chip_smoke.py
+    --multihost-worker ...`): the world forms on gloo over localhost, the
+    process searches its half of B on `device`, and writes its fragments
+    of the SGA and the native output; one JSON line of its figures."""
+    import bwtmerge_tpu_torch as port
+    from bwtmerge_tpu_torch import kernels
+    from bwtmerge_tpu_torch.parallel.distributed import (
+        initialize_multihost, multihost_merge_to_file)
+
+    t0 = time.monotonic()
+    initialize_multihost(f"tcp://127.0.0.1:{port_no}", 2, rank,
+                         timeout_s=300)
+    a, b = port.load_fmi(a_path, "sga"), port.load_fmi(b_path, "sga")
+    t1 = time.monotonic()
+    figures = {"rank": rank, "world_and_load_s": t1 - t0}
+    kernels.reset_launches()
+    a.device_index(device), b.device_index(device)
+    figures["index_build_s"] = time.monotonic() - t1
+    for fmt in ("sga", "native"):
+        stats = {}
+        t = time.monotonic()
+        multihost_merge_to_file(a, b, os.path.join(out_dir, f"merged.{fmt}"),
+                                fmt, shard_dir=out_dir, device=device,
+                                stats=stats)
+        figures[fmt] = {"merge_s": time.monotonic() - t, **stats}
+    figures["launches"] = kernels.launches()
+    print("MULTIHOST " + json.dumps(figures), flush=True)
+
+
+def two_processes(device, fixtures: Fixtures, timeout_s: int = 300) -> dict:
+    """A torch.distributed world of two processes on the one card (gloo,
+    localhost): multihost_merge_to_file of the medium pair into SGA and
+    native, each byte-identical to the single-device merge's file."""
+    import socket
+
+    import bwtmerge_tpu_torch as port
+
+    a_path, b_path = fixtures.get("a"), fixtures.get("b")
+    d = os.path.dirname(a_path)
+    want_native = os.path.join(d, "merged_single.native")
+    port.merge_fmi_to_file(port.load_fmi(a_path, "sga"),
+                           port.load_fmi(b_path, "sga"), want_native,
+                           "native", port.MergeConfig(device=str(device),
+                                                      temp_dir=d))
+    out_dir = os.path.join(d, "multihost")
+    os.makedirs(out_dir, exist_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port_no = sk.getsockname()[1]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(rank), str(port_no), a_path, b_path, out_dir, str(device)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost worker exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+    figures = [json.loads(line.split(" ", 1)[1]) for text in logs
+               for line in text.splitlines() if line.startswith("MULTIHOST ")]
+    same_bytes(os.path.join(out_dir, "merged.sga"),
+               os.path.join(d, "merged.sga"), "two-process merge, SGA")
+    same_bytes(os.path.join(out_dir, "merged.native"), want_native,
+               "two-process merge, native")
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    os.remove(want_native)
+    result = {"wall_s": wall, "processes": figures}
+    log(f"two processes on gloo, each on {device}: SGA and native "
+        f"byte-identical to the single-device merge's; {json.dumps(result)}")
+    return result
+
+
+def sharded_build(device, shards: int = 4, reads: int = MEDIUM[0]) -> dict:
+    """build_bwt_sharded of the medium A over [cuda:0] * 4, byte-identical
+    to build_from_reads(backend='torch') on the card; both timed."""
+    from bwtmerge_tpu_torch.formats import write_bwt
+    from bwtmerge_tpu_torch.models.build import alphabet_for, build_from_reads
+    from bwtmerge_tpu_torch.parallel.sort_distributed import build_bwt_sharded
+
+    packed = packed_reads(reads, 1)
+    d = os.path.join(CACHE, "sharded_build")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.monotonic()
+    single, _ = build_from_reads(packed, backend="torch", device=str(device))
+    t1 = time.monotonic()
+    runs, counts, wall = drive(lambda: build_bwt_sharded(
+        packed, mesh=[device] * shards))
+    paths = []
+    for name, r in (("single", single), ("sharded", runs)):
+        paths.append(os.path.join(d, f"a_{name}.sga"))
+        write_bwt(paths[-1], "sga", r, alphabet_for(r))
+    same_bytes(paths[1], paths[0], "sharded build of the medium A")
+    for path in paths:
+        os.remove(path)
+    result = {"reads": reads, "shards": shards,
+              "positions": int(runs.size()), "sharded_s": wall,
+              "single_device_s": t1 - t0, "launches": counts}
+    log(f"build_bwt_sharded, medium A over {shards} x {device}: "
+        f"byte-identical to the single-device build; {json.dumps(result)}")
+    return result
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--multihost-worker":
+        sys.path.insert(0, ROOT)
+        rank, port_no, a_path, b_path, out_dir, dev = sys.argv[2:8]
+        multihost_worker(int(rank), int(port_no), a_path, b_path, out_dir,
+                         dev)
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA card")
@@ -1519,6 +1861,26 @@ def main() -> int:
         construction_timing(device)
         construction(device, fixtures)
         medium_interleaves(device, fixtures)
+        # the multi-device paths, on meshes that repeat the one card
+        p5 = p5_spill(device, fixtures)
+        p5["main_path_peak_pinned_host_bytes"] = \
+            paths["two_input_merge"]["ra_pinned_host_bytes"]
+        log(f"rank-array budget (-r 1 -m 2): {json.dumps(p5)}")
+        for key in ("device_blocks_auto", "device_blocks_8"):
+            paths[f"p5_{key}"] = p5[key]
+        mesh = mesh_routes(device, fixtures)
+        for key, counts in mesh.pop("launches").items():
+            paths[key] = {"launches": counts}
+        t2 = cli_t2(device, fixtures)
+        paths["cli_t2"] = t2
+        for fig in two_processes(device, fixtures)["processes"]:
+            paths[f"two_process_rank_{fig['rank']}"] = fig
+        paths["sharded_build"] = sharded_build(device)
+        # what one card cannot show: -t 2 is the only run that puts shards
+        # on two GPUs (peer copies of the index), and NCCL never ran
+        log(json.dumps({"multi_gpu": {
+            "visible_gpus": t2["visible_gpus"],
+            "peer_copies": t2["visible_gpus"] >= 2, "nccl": False}}))
         cli_profile(device, fixtures)
     for rec in records:
         by_path = {k: r["launches"][rec["name"]] for k, r in paths.items()}

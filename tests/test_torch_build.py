@@ -197,7 +197,7 @@ def test_host_helpers(rng, fixed):
 
 
 @pytest.mark.parametrize("rlo", [False, True])
-@pytest.mark.parametrize("backend", ["numpy", "torch", "auto"])
+@pytest.mark.parametrize("backend", ["numpy", "torch", "auto", "sharded"])
 def test_build_from_reads_backends(rng, backend, rlo):
     col = oracle.random_collection(rng, 60, 5, 80)
     j_backend = {"torch": "jax"}.get(backend, backend)
@@ -219,8 +219,12 @@ def test_build_from_reads_auto_rule_and_unknown_backend(rng, monkeypatch):
     assert use("auto", 1 << 20, "cuda") and use("auto", 1 << 20, "cuda:0")
     assert not use("auto", 1 << 30, "cpu")
     col = oracle.random_collection(rng, 5, 5, 9)
-    with pytest.raises(ValueError, match="A.10"):
-        p_build.build_from_reads(col, backend="sharded", device="cpu")
+    # 'sharded' spreads the suffix sort over the mesh it is given
+    got, order = p_build.build_from_reads(col, rlo=True, backend="sharded",
+                                          device="cpu", mesh=["cpu"] * 4)
+    want, want_order = j_build.build_from_reads(col, rlo=True,
+                                                backend="sharded")
+    assert np.array_equal(order, want_order) and _same_runs(got, want)
     with pytest.raises(ValueError, match="backend"):
         p_build.build_from_reads(col, backend="jax", device="cpu")
     # a collection past the threshold under 'auto' goes to the device asked
@@ -301,7 +305,7 @@ def _write_reads(path, reads):
 
 @pytest.mark.parametrize("fmt", ["sga", "native"])
 @pytest.mark.parametrize("rlo", [[], ["--rlo"]])
-@pytest.mark.parametrize("backend", ["numpy", "torch"])
+@pytest.mark.parametrize("backend", ["numpy", "torch", "sharded"])
 def test_bwt_build_cli_matches_jax(tmp_path, rng, capsys, backend, rlo, fmt):
     reads = oracle.random_collection(rng, 40, 3, 35)
     src = _write_reads(tmp_path / "reads.txt", reads)
@@ -359,9 +363,14 @@ def test_bwt_build_cli_sharded_and_missing_file(tmp_path, capsys):
     src = tmp_path / "r.txt"
     src.write_bytes(b"ACGT\n")
     out = tmp_path / "o.sga"
-    assert port_cli.main([str(src), str(out), "--backend", "sharded",
-                          "--device", "cpu"]) == 1
-    assert "ROADMAP A.10" in capsys.readouterr().err and not out.exists()
+    # --backend sharded builds (over one CPU entry here) the JAX CLI's bytes
+    want = tmp_path / "want.sga"
+    assert jax_cli.main([str(src), str(want), "-o", "sga", "--backend",
+                         "sharded", "--quiet"]) == 0
+    assert port_cli.main([str(src), str(out), "-o", "sga", "--backend",
+                          "sharded", "--device", "cpu", "--quiet"]) == 0
+    assert out.read_bytes() == want.read_bytes()
+    capsys.readouterr()
     assert port_cli.main([str(tmp_path / "nope.txt"), str(out), "--quiet",
                           "--device", "cpu"]) == 1
     assert "bwt_build:" in capsys.readouterr().err

@@ -2,8 +2,8 @@
 JAX package's, on the CPU: same output bytes, same -v counts, same exit
 status, on every route (two-input merge, k-way fold, pairwise chain,
 --low-memory, --checkpoint resume, --search walk without a sidecar,
---search trie, a B without a sidecar); later-slice features exit with
-status 1.
+--search trie, a B without a sidecar, -t N over a mesh of CPU entries,
+--index-placement sharded); -t N on fewer GPUs exits with status 1.
 """
 
 import os
@@ -125,20 +125,33 @@ def test_corrupted_sidecar_fails_verification_alike(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["-t", "2"], ["--index-placement", "sharded"], ["--search", "trie"]])
 def test_later_slice_features_exit_1(tmp_path, inputs, capsys, argv):
+    # no later slice any more: three inputs with each of these run to the
+    # JAX CLI's bytes (-t 2 over two CPU entries, the fold on one device as
+    # in the JAX CLI; a sharded placement of one device is replicated;
+    # --search trie takes the pairwise chain with the trie search)
     a, b, pats, _, _ = inputs
-    out = tmp_path / "o.sga"
-    if argv == ["--search", "trie"]:
-        # no later slice any more: three inputs under --search trie take the
-        # pairwise chain with the trie search, to the JAX CLI's bytes
-        res = _both(tmp_path, capsys, [a, b, a], ["-v", pats, *argv],
-                    sidecars=False)
-        _assert_same(res, 3)
-        return
-    rc = port_cli.main([a, b, a, str(out), "-i", "sga", "--device", "cpu",
-                        "--quiet", *argv])
-    assert rc == 1
-    assert "ROADMAP" in capsys.readouterr().err
-    assert not out.exists()
+    res = _both(tmp_path, capsys, [a, b, a], ["-v", pats, *argv],
+                sidecars=False)
+    _assert_same(res, 3)
+
+
+@pytest.mark.parametrize("argv", [
+    ["-t", "2"], ["-t", "3", "--search", "trie"],
+    ["-t", "2", "--search", "trie", "-s", "2"],
+    ["-t", "2", "--search", "trie", "-s", "7"],
+    ["-t", "2", "--index-placement", "sharded", "--search", "trie"],
+    ["-t", "4", "--index-placement", "sharded", "--search", "trie", "-s",
+     "3"],
+    ["-t", "2", "--fold", "chain", "--stream"]])
+def test_mesh_cli_matches_jax(tmp_path, inputs, capsys, argv):
+    # the mesh routes of a pairwise merge (walk lanes dealt over the shards;
+    # one sequence block a shard; the dynamic queue; record tables split
+    # over the mesh; a chain of two merges) write the JAX CLI's bytes, the
+    # JAX CLI on its virtual CPU devices, the port on CPU entries
+    a, b, pats, _, _ = inputs
+    paths = [a, b, a] if "--fold" in argv else [a, b]
+    res = _both(tmp_path, capsys, paths, ["-v", pats, *argv])
+    _assert_same(res, len(paths))
 
 
 @pytest.fixture(scope="module")
@@ -434,12 +447,21 @@ def test_every_jax_cli_argument_parses_in_the_port():
                                                  True)
 
 
-def test_later_slice_message_names_the_item_only(tmp_path, inputs, capsys):
+def test_later_slice_message_names_the_item_only(tmp_path, inputs, capsys,
+                                                 monkeypatch):
+    # -t 2 --device cuda on a machine of one GPU: status 1, and the message
+    # names the GPUs torch sees (the mesh never quietly shrinks)
+    import torch
+
     a, b, _, _, _ = inputs
-    assert port_cli.main([a, b, str(tmp_path / "o.sga"), "-i", "sga", "-t",
-                          "2", "--device", "cpu"]) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    out = tmp_path / "o.sga"
+    assert port_cli.main([a, b, str(out), "-i", "sga", "-t", "2",
+                          "--device", "cuda", "--quiet"]) == 1
     err = capsys.readouterr().err
-    assert "ROADMAP A.10" in err and "slice" not in err
+    assert "torch.cuda.device_count() is 1" in err and "slice" not in err
+    assert not out.exists()
 
 
 def test_numpy_backend_with_three_inputs_takes_the_chain(tmp_path, pieces,

@@ -141,6 +141,58 @@ def test_blocked_walk_on_card_matches_cpu(cuda):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_mesh_searches_on_card_match_cpu(cuda, shards):
+    # meshes that repeat the card: every shard on its own stream, the walk
+    # and the trie (streamed probes) launched once a shard or more
+    import numpy as np
+
+    from bwtmerge_tpu_torch.formats.sidecar import creads_layout
+    from bwtmerge_tpu_torch.models.spill import RankArraySpill
+    from bwtmerge_tpu_torch.parallel import mesh
+
+    a, _ = _real_index(cuda, 2000, seed=11)
+    b, b_reads = _real_index(cuda, 700, seed=12)
+    a_cpu = type(a)(rec=a.rec.cpu(), C=a.C.cpu(), size=a.size, n_runs=0)
+    b_cpu = type(b)(rec=b.rec.cpu(), C=b.C.cpu(), size=b.size, n_runs=0)
+    n_a, n_b = int(a.C[1]), int(b.C[1])
+    creads = creads_layout(np.array([r.size for r in b_reads], np.uint32),
+                           np.concatenate(b_reads).astype(np.uint8))
+    want = mesh.sharded_rank_array(a_cpu, b_cpu, n_a, n_b, mesh=["cpu"])
+    kernels.reset_launches()
+    walk = mesh.sharded_walk_packed_ra(a, creads, mesh=[cuda] * shards,
+                                       a_sequences=n_a).finish()
+    assert kernels.WALK_EMIT.launches == shards
+    assert kernels.WALK_PLANES_BUILD.launches == 1
+    trie = mesh.sharded_packed_ra(a, b, n_a, n_b, mesh=[cuda] * shards)
+    assert kernels.STREAMED_PROBE.launches >= shards
+    acc = RankArraySpill()
+    mesh.dynamic_block_search(a, b, n_a, n_b, acc.emit, n_blocks=3 * shards,
+                              mesh=[cuda] * shards)
+    for got in (walk, trie.finish(), acc.finish()):
+        assert all(np.array_equal(g, w) for g, w in zip(got, want[:2]))
+
+
+def test_blocked_ra_drains_card_blocks(cuda, tmp_path):
+    # past its budget a BlockedRA drains pinned blocks into spill files
+    import numpy as np
+
+    from bwtmerge_tpu_torch.models.spill import RankArraySpill
+    from bwtmerge_tpu_torch.ops.ra_stream import BlockedRA
+
+    rng = np.random.default_rng(2)
+    parts = [np.unique(rng.integers(0, 10**6, size=n)) for n in
+             (5000, 7000, 3000, 9000)]
+    ra = BlockedRA(9000, lambda: RankArraySpill(temp_dir=str(tmp_path)))
+    for v in parts:
+        t = torch.from_numpy(v).to(cuda)
+        ra.add(t, torch.ones_like(t))
+    assert sum(len(b) for b in ra.blocks) <= 9000 and ra.n_spill_files
+    v, c = ra.finish()
+    want = np.unique(np.concatenate(parts), return_counts=True)
+    assert np.array_equal(v, want[0]) and np.array_equal(c, want[1])
+
+
 def _real_index(device, n_reads=3000, seed=8):
     """DeviceFMIndex of a real collection BWT: reads of 1..40 characters,
     a few of length 1, and one of 150 (past a 64-row cap)."""

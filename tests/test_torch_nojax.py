@@ -5,13 +5,16 @@ The first case runs in a subprocess because tests/conftest.py imports jax
 into this one.  The child, and every process it starts (the fold's
 subprocess stages), runs under a sitecustomize that makes an import of
 `jax`, `jax.*`, `bwtmerge_tpu` or `bwtmerge_tpu.*` raise.  There the
-fixtures are made with the port's own formats and oracle, every port module
-and chip_smoke are imported, and the port's CLI runs a two-input merge by
-the walk and by the trie search, a three-input k-way fold with its
-subprocess chain and a merge on the numpy backend with --profile, the
-bwt_build, bwt_convert and bwt_inspect CLIs run, and the device interleave
-and the range-parallel host interleave merge a pair, so that a lazy import
-on any of these paths fails too.
+fixtures are made with the port's own formats and oracle, every port module,
+chip_smoke and the two-process test's worker (tests/test_torch_multihost.py,
+whose workers run under the same hook) are imported, and the port's CLI runs
+a two-input merge by the walk and by the trie search, the merge over meshes
+of CPU entries (-t 2, the dynamic queue, --index-placement sharded), a
+three-input k-way fold with its subprocess chain and a merge on the numpy
+backend with --profile, the bwt_build (numpy, torch and sharded),
+bwt_convert and bwt_inspect CLIs run, and the device interleave and the
+range-parallel host interleave merge a pair, so that a lazy import on any
+of these paths fails too.
 The second case reads the port's sources for such an import.
 """
 
@@ -61,11 +64,17 @@ CHILD = textwrap.dedent("""
     assert len(names) > 43, names
     for new in ("cli.bwt_build", "cli.bwt_convert", "cli.bwt_inspect",
                 "ops.sa_torch", "ops.interleave_torch", "models.build",
-                "models.parallel_merge", "parallel.distributed"):
+                "models.parallel_merge", "parallel.distributed",
+                "parallel.mesh", "parallel.sort_distributed",
+                "ops.rank_sharded"):
         assert f"bwtmerge_tpu_torch.{new}" in names, new
     for name in names:
         importlib.import_module(name)
     import chip_smoke
+    # the two-process test's worker is its own file, run as a script
+    sys.path.insert(0, "tests")
+    import test_torch_multihost
+    assert callable(test_torch_multihost.worker)
     import bwtmerge_tpu_torch.cli.bwt_merge as cli
     from bwtmerge_tpu_torch.formats import read_bwt, write_bwt
     from bwtmerge_tpu_torch.formats.sidecar import (sidecar_path,
@@ -92,6 +101,16 @@ CHILD = textwrap.dedent("""
         assert rc == 0, (search, rc)
         runs, _, _ = read_bwt(f"{d}/o_{search}.sga", "sga")
         assert runs == oracle.merge_collections(colls[:2]), search
+    # the mesh routes: -t 2 over two CPU entries (the walk), the trie with
+    # the dynamic queue, the record tables split over the mesh
+    for extra in (["-t", "2"], ["-t", "2", "--search", "trie", "-s", "5"],
+                  ["-t", "3", "--search", "trie", "--index-placement",
+                   "sharded"]):
+        rc = cli.main([f"{d}/a.sga", f"{d}/b.sga", f"{d}/o_mesh.sga",
+                       *extra, *common])
+        assert rc == 0, (extra, rc)
+        runs, _, _ = read_bwt(f"{d}/o_mesh.sga", "sga")
+        assert runs == oracle.merge_collections(colls[:2]), extra
     # three inputs: the k-way fold, its interleave passes as subprocess
     # stages (python -m bwtmerge_tpu_torch.models.kfold_stage), which
     # inherit the hook through PYTHONPATH
@@ -114,7 +133,7 @@ CHILD = textwrap.dedent("""
     with open(f"{d}/reads.txt", "wb") as f:
         for s in colls[0]:
             f.write(bytes(comp2char[s]) + b"\\n")
-    for backend in ("numpy", "torch"):
+    for backend in ("numpy", "torch", "sharded"):
         rc = build_cli.main([f"{d}/reads.txt", f"{d}/built_{backend}.sga",
                              "-o", "sga", "--backend", backend, "--device",
                              "cpu", "--quiet"])
