@@ -158,8 +158,11 @@ DECODE = Kernel("decode", "decode.cu",
                 "decode_error_string")
 DECODE_ROWS_BUILD = Kernel("decode_rows_build", "decode.cu",
                            [_P, _I64, _P, _P], "decode_error_string")
+REC_BUILD = Kernel("rec_build", "rec_build.cu",
+                   [_P, _I64, _P, _P, _I64, _P, _P],
+                   "rec_build_error_string")
 KERNELS = (STREAMED_PROBE, WALK_EMIT, WALK_PLANES_BUILD, DECODE,
-           DECODE_ROWS_BUILD)
+           DECODE_ROWS_BUILD, REC_BUILD)
 
 
 def reset_launches() -> None:

@@ -55,9 +55,10 @@ class ShardedFMIndex:
         No device and no host temporary ever holds more than one slab: the
         host nibble-packs each slab's 32-position blocks from the run
         stream, uploads 0.5 B a position to the owning device, and the
-        device derives its own [slab, REC] records (rank_torch.build_rec);
-        the slab-start occ bases come from a host prefix over the runs, so
-        the occ columns stay GLOBAL cumulative counts.  `C` is the
+        device derives its own [slab, REC] records (rank_torch.build_rec,
+        given the slab-start occ base: rank_jax._build_rec_slab's role);
+        the bases come from a host prefix over the runs, so the occ
+        columns stay GLOBAL cumulative counts.  `C` is the
         per-character counts (default: counted from the runs)."""
         devices = mesh_devices(mesh)
         n = len(devices)
@@ -102,10 +103,8 @@ class ShardedFMIndex:
                 blk2 = win.reshape(-1, BLK)
                 packed = (blk2[:, :16] | (blk2[:, 16:] << 4)).astype(np.uint8)
                 nib[: packed.size] = packed.reshape(-1)
-            rec = build_rec(torch.from_numpy(nib).to(dev), slab)
-            rec[:, :LANES] += torch.from_numpy(
-                bases[d].astype(np.int32)).to(dev)[None, :]
-            slabs.append(rec)
+            slabs.append(build_rec(torch.from_numpy(nib).to(dev), slab,
+                                   base=torch.from_numpy(bases[d])))
         C_dev = torch.from_numpy(c_array(counts)).to(devices[0])
         return cls(slabs=slabs, C=C_dev, size=size, slab=slab)
 

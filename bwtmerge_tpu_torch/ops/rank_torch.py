@@ -12,7 +12,10 @@ record table, bit for bit:
 with NBLK = size // 32 + 1 so that i == size resolves (its block's tail is
 SIGMA-filled, and no query lane counts SIGMA).  The host packs the text to
 0.5 B/position (native nib4_pack, as the JAX build does) and the record
-table is derived on the device with plain torch ops.
+table is derived on the device in one piece by the hand-written rec_build
+(csrc/rec_build.cu; build_rec_plain is its plain version), whose peak
+memory is the nibbles and the table: the JAX package's slabs are not
+needed.
 
 The queries here are the gather path (one record row per query).  Large
 sorted batches go through the hand-written streamed probe instead
@@ -27,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels import resolve_device
+from ..kernels import REC_BUILD, resolve_device
 from ..models.runs import RunArrays
 
 SIGMA = 6
@@ -37,6 +40,7 @@ REC = 16         # int32 words per record: 8 occ + 8 packed-symbol words
 NIB_FILL = SIGMA | (SIGMA << 4)  # pad byte: no query lane counts SIGMA
 SENT = 2**31 - 1
 STREAMED_MIN_BATCH = 1 << 14     # batch_count's switch to the streamed search
+REC_TILE = 256   # record blocks a tile of csrc/rec_build.cu (its kThreads)
 
 
 def c_array(counts) -> np.ndarray:
@@ -120,21 +124,92 @@ def pack_nibbles_chunked(chunks):
     return nib[:need], counts, size, n_runs
 
 
-def build_rec(nibbles: torch.Tensor, nblk: int) -> torch.Tensor:
-    """Block-planar nibble text (uint8[>= nblk*16], byte k of block b holds
-    position 32b+k in its low nibble and 32b+16+k in its high nibble) ->
-    record table int32[nblk, REC], on the tensor's device.  Same values as
-    rank_jax._build_rec_device."""
+def _by_block(nibbles: torch.Tensor, nblk: int) -> torch.Tensor:
     nib2 = nibbles[: nblk * 16].view(nblk, 16)
-    by_block = torch.cat([nib2 & 0xF, nib2 >> 4], dim=1)       # [nblk, 32]
-    per_block = torch.stack(
+    return torch.cat([nib2 & 0xF, nib2 >> 4], dim=1)          # [nblk, 32]
+
+
+def block_counts(nibbles: torch.Tensor, nblk: int) -> torch.Tensor:
+    """int32[nblk, LANES]: each block's count of each symbol value, from
+    block-planar nibbles (see build_rec_plain)."""
+    by_block = _by_block(nibbles, nblk)
+    return torch.stack(
         [(by_block == c).sum(dim=1, dtype=torch.int32) for c in range(LANES)],
-        dim=1)                                                 # [nblk, LANES]
+        dim=1)
+
+
+def pack_symbol_words(nibbles: torch.Tensor, nblk: int) -> torch.Tensor:
+    """int32[nblk, 8]: each block's 32 symbols, word w holding positions
+    4w..4w+3 one byte each, least significant first."""
+    b32 = _by_block(nibbles, nblk).to(torch.int32)
+    return (b32[:, 0::4] | (b32[:, 1::4] << 8) | (b32[:, 2::4] << 16)
+            | (b32[:, 3::4] << 24))
+
+
+def build_rec_plain(nibbles: torch.Tensor, nblk: int,
+                    base=None) -> torch.Tensor:
+    """Plain PyTorch version of the record build: block-planar nibble text
+    (uint8[>= nblk*16], byte k of block b holds position 32b+k in its low
+    nibble and 32b+16+k in its high nibble) -> record table int32[nblk,
+    REC], on the tensor's device, its occ lanes raised by `base` (LANES
+    counts; None is zero).  Same values as rank_jax._build_rec_device, and
+    with a base as rank_jax._build_rec_slab's table."""
+    per_block = block_counts(nibbles, nblk)
     occ = torch.cumsum(per_block, dim=0, dtype=torch.int32) - per_block
-    b32 = by_block.to(torch.int32)
-    packed = (b32[:, 0::4] | (b32[:, 1::4] << 8) | (b32[:, 2::4] << 16)
-              | (b32[:, 3::4] << 24))
-    return torch.cat([occ, packed], dim=1).contiguous()
+    if base is not None:
+        occ += _base_row(base, nibbles.device)[None, :]
+    return torch.cat([occ, pack_symbol_words(nibbles, nblk)],
+                     dim=1).contiguous()
+
+
+def _base_row(base, device) -> torch.Tensor:
+    row = torch.as_tensor(base).to(device=device, dtype=torch.int32)
+    if row.shape != (LANES,):
+        raise ValueError(f"build_rec: base must hold {LANES} counts, got "
+                         f"shape {list(row.shape)}")
+    return row.contiguous()
+
+
+def _check_nibbles(nibbles: torch.Tensor, nblk: int) -> None:
+    if nibbles.dtype != torch.uint8 or nibbles.dim() != 1:
+        raise ValueError(f"build_rec: nibbles must be uint8[N], got "
+                         f"{nibbles.dtype}{list(nibbles.shape)}")
+    if nblk < 1 or nibbles.numel() < nblk * 16:
+        raise ValueError(f"build_rec: {nibbles.numel()} nibble bytes for "
+                         f"{nblk} blocks (needs {nblk} >= 1 and "
+                         f"{nblk * 16} bytes)")
+
+
+def build_rec(nibbles: torch.Tensor, nblk: int, base=None) -> torch.Tensor:
+    """The record table int32[nblk, REC] of block-planar nibble text, its
+    occ lanes raised by `base` (see build_rec_plain).  CUDA tensors launch
+    rec_build; CPU tensors take the plain version."""
+    _check_nibbles(nibbles, nblk)
+    if nibbles.device.type == "cpu":
+        return build_rec_plain(nibbles, nblk, base)
+    return rec_build(nibbles, nblk, base)
+
+
+def rec_build(nibbles: torch.Tensor, nblk: int, base=None) -> torch.Tensor:
+    """The kernel's entry: rec_build of csrc/rec_build.cu on the nibbles'
+    CUDA device (contiguous, 16-byte aligned); raises for any other
+    tensor.  Allocates the table and the kernel's tile counts."""
+    _check_nibbles(nibbles, nblk)
+    if nibbles.device.type != "cuda":
+        raise ValueError(f"rec_build: needs a CUDA tensor, got one on "
+                         f"{nibbles.device}")
+    if not nibbles.is_contiguous() or nibbles.data_ptr() % 16:
+        raise ValueError("rec_build needs contiguous, 16-byte aligned "
+                         "nibbles")
+    base_row = (torch.zeros(LANES, dtype=torch.int32, device=nibbles.device)
+                if base is None else _base_row(base, nibbles.device))
+    tiles = torch.empty(-(-nblk // REC_TILE) * LANES, dtype=torch.int32,
+                        device=nibbles.device)
+    rec = torch.empty((nblk, REC), dtype=torch.int32, device=nibbles.device)
+    with torch.cuda.device(nibbles.device):
+        REC_BUILD.launch(nibbles.data_ptr(), nblk, base_row.data_ptr(),
+                         tiles.data_ptr(), tiles.numel(), rec.data_ptr())
+    return rec
 
 
 def check_rec(rec: torch.Tensor, what: str) -> None:

@@ -20,7 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    offsets 0 and 31; the full decode must also give back the generated
    reads.  The kernels that build K2's and K3's tables (walk_planes_build,
    decode_rows_build) are held against their plain versions on the same
-   record tables.  Each kernel's bound is computed from these inputs;
+   record tables.  rec_build, the record table's build, is held against
+   build_rec_plain at the medium A's size (26.7 M random positions) with a
+   zero and a random base, and at 1, 255, 256, 257 and 2^20 + 3 blocks,
+   and timed beside torch.cumsum over the transposed [8, NBLK] counts.
+   Each kernel's bound is computed from these inputs;
 4. small exact merge: 20k + 10k random 50 bp reads merged by the port on
    the card (in three read blocks) and by the port's plain numpy
    reference (ops/search_np.py, ops/interleave_np.py); the files must be
@@ -80,6 +84,24 @@ After these, the phases of construction, the interleaves and the CLIs:
     interleave_stream_chunks_parallel + coalesce_run_chunks and the writer,
     byte-identical files, both chains' seconds;
 
+Then bench.py's large scale and the record build at the layout's limit:
+
+13b. the main path at bench.py's large scale: A of 2,000,000 and B of
+    1,000,000 random 50 bp reads (bench.py's seeds 101 and 102; B with its
+    sidecar) built on the card by build_from_reads and cached;
+    bwt_merge A B out -v patterns --device-blocks 8 -r 3 -m 2 -d DIR (6 Mi
+    runs held, bench.py's spill threshold: the rest drains into several
+    spill files), byte-identical to the same merge without the budget and
+    to the --search trie merge; rec_build launched once a record table
+    built in each run; phases, -v passes, index builds, Mbases/s, spill
+    files.  Then the large A's table by rec_build and by build_rec_plain:
+    time and the peak of device memory above the nibbles;
+13c. rec_build at 2^31 - 2 random positions (the largest index the int32
+    layout takes), checked without the plain version's scan: row 0 is the
+    base, neighbouring rows differ by the block counts and the packed
+    words are the plain packing (torch ops, slab by slab), the last row
+    plus its block's counts is the base plus the text's bincount;
+
 Then the multi-device paths, on meshes that repeat the one card:
 
 14. the rank array's budget: the medium walk merge with -r 1 -m 2 -d DIR
@@ -91,7 +113,8 @@ Then the multi-device paths, on meshes that repeat the one card:
     queue of 16 blocks, the record tables split over the mesh), each file
     byte-identical to the main path's, K2 and K1 launched once a shard or
     more where their route runs (walk_planes_build once: one distinct
-    device), per-shard runs and search seconds; sharded_backward_search
+    device; rec_build once a slab of the split tables), per-shard runs
+    and search seconds; sharded_backward_search
     of the patterns equal to the single-device counts;
 16. bwt_merge -t 2 --device cuda: status 1 naming torch.cuda.device_count()
     on one GPU, the main path's bytes on two or more;
@@ -474,13 +497,13 @@ def decode_bound(creads, steps: int, rows) -> dict:
     return out
 
 
-def random_index(n_pos: int, device, seed: int):
-    """A DeviceFMIndex over n_pos random symbols 0..5, built on the device
-    from the symbols themselves (a probe needs no valid BWT)."""
+def random_nibbles(n_pos: int, device, seed: int):
+    """n_pos random symbols 0..5 made on the device, SIGMA-padded to whole
+    blocks: (symbols uint8[n_pos], block-planar nibbles uint8[nblk * 16],
+    nblk)."""
     import torch
 
-    from bwtmerge_tpu_torch.ops.rank_torch import (BLK, SIGMA, DeviceFMIndex,
-                                                   build_rec, c_array)
+    from bwtmerge_tpu_torch.ops.rank_torch import BLK, SIGMA
 
     gen = torch.Generator(device=device).manual_seed(seed)
     syms = torch.randint(0, SIGMA, (n_pos,), generator=gen, device=device,
@@ -489,7 +512,18 @@ def random_index(n_pos: int, device, seed: int):
     text = torch.full((nblk * BLK,), SIGMA, dtype=torch.uint8, device=device)
     text[:n_pos] = syms
     blocks = text.view(nblk, BLK)
-    nibbles = (blocks[:, :16] | (blocks[:, 16:] << 4)).reshape(-1)
+    return syms, (blocks[:, :16] | (blocks[:, 16:] << 4)).reshape(-1), nblk
+
+
+def random_index(n_pos: int, device, seed: int):
+    """A DeviceFMIndex over n_pos random symbols 0..5, built on the device
+    from the symbols themselves (a probe needs no valid BWT)."""
+    import torch
+
+    from bwtmerge_tpu_torch.ops.rank_torch import (SIGMA, DeviceFMIndex,
+                                                   build_rec, c_array)
+
+    syms, nibbles, nblk = random_nibbles(n_pos, device, seed)
     counts = torch.bincount(syms, minlength=SIGMA).cpu().numpy()
     return DeviceFMIndex(rec=build_rec(nibbles, nblk),
                          C=torch.from_numpy(c_array(counts)).to(device),
@@ -823,6 +857,135 @@ def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
     return [rec, kb]
 
 
+REC_EDGE_BLOCKS = (1, 255, 256, 257, (1 << 20) + 3)   # rec_build: 256 a tile
+REC_LIMIT_POSITIONS = 2**31 - 2      # the largest index the int32 layout takes
+REC_CHECK_SLAB = 1 << 22             # blocks a slab of the limit's checks
+
+
+def rec_bound(nblk: int) -> dict:
+    """rec_build's bound: the nibbles read once (16 B a block), the table
+    written once (64 B a block) and the base row read; a compare and an
+    add per position and occ lane."""
+    from bwtmerge_tpu_torch.ops.rank_torch import BLK, LANES
+
+    return bound(nblk * 80 + 4 * LANES, nblk * BLK * LANES * 2)
+
+
+def check_rec_build(device, n_pos: int = MEDIUM[0] * (READ_LEN + 1),
+                    seed: int = 9) -> list:
+    """rec_build against build_rec_plain on the same device tensors, exact:
+    n_pos random positions (the medium A's size) with a zero base and with
+    a random one, then the edge sizes of REC_EDGE_BLOCKS (one block, a
+    tile and its neighbours, 2^20 + 3 blocks), each with both bases.  Timed
+    beside the plain version and beside the one PyTorch call that does the
+    scan part, torch.cumsum over the transposed [LANES, NBLK] counts (the
+    port never calls it).  Returns rec_build's record."""
+    import torch
+
+    from bwtmerge_tpu_torch.ops.rank_torch import (LANES, block_counts,
+                                                   build_rec, build_rec_plain)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randint(0, 1 << 24, (LANES,), generator=gen, device=device,
+                         dtype=torch.int32)
+    err = 0
+    cases = [(n_pos, seed)] + [(blocks * 32 - 1 - k, seed + 1 + k)
+                               for k, blocks in enumerate(REC_EDGE_BLOCKS)]
+    for size, case_seed in cases:
+        _, nib, nblk = random_nibbles(size, device, case_seed)
+        for b in (None, base):
+            got = build_rec(nib, nblk, b)
+            want = build_rec_plain(nib, nblk, b)
+            torch.cuda.synchronize(device)
+            err = max(err, int((got.to(torch.int64) - want.to(torch.int64)
+                                ).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"rec_build differs from its plain version at {nblk} "
+                    f"blocks, base {None if b is None else b.tolist()} "
+                    f"(max abs err {err})")
+    del got, want
+    _, nib, nblk = random_nibbles(n_pos, device, seed)
+    lanes = block_counts(nib, nblk).t().contiguous()     # [LANES, NBLK]
+    rec = {"name": "rec_build", "route": "cuda",
+           "source": "bwtmerge_tpu_torch/csrc/rec_build.cu",
+           "replaces": "bwtmerge_tpu/ops/rank_jax.py:416",
+           "max_abs_err": err, "positions": n_pos, "nblk": nblk,
+           "ms": time_ms(lambda: build_rec(nib, nblk), device),
+           "ms_l2_filled": time_ms_cold(lambda: build_rec(nib, nblk), device),
+           "plain_ms": time_ms(lambda: build_rec_plain(nib, nblk), device, 3),
+           **rec_bound(nblk)}
+    rec["library_ms"] = time_ms(
+        lambda: torch.cumsum(lanes, dim=1, dtype=torch.int32), device)
+    log(f"rec_build: {n_pos} random positions ({nblk} blocks): equal with a "
+        f"zero and a random base, and at {list(REC_EDGE_BLOCKS)} blocks; "
+        f"{rec['ms']:.4f} ms ({rec['ms_l2_filled']:.4f} ms after the L2 is "
+        f"filled) vs plain {rec['plain_ms']:.4f} ms, torch.cumsum of the "
+        f"[{LANES}, {nblk}] counts {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.0%})")
+    return [rec]
+
+
+def rec_build_near_limit(device, n_pos: int = REC_LIMIT_POSITIONS,
+                         seed: int = 19) -> dict:
+    """rec_build at the int32 layout's limit, checked without the plain
+    version's scan: row 0's occ is the base; the difference of each two
+    neighbouring rows' occ is the upper block's count, and the packed words
+    are the plain packing, both computed slab by slab with torch ops; the
+    last row plus the last block's counts is the base plus the symbols'
+    bincount.  Time and peak memory of the build."""
+    import torch
+
+    from bwtmerge_tpu_torch.ops.rank_torch import (LANES, block_counts,
+                                                   build_rec,
+                                                   pack_symbol_words)
+
+    syms, nib, nblk = random_nibbles(n_pos, device, seed)
+    total = sum(torch.bincount(syms[i:i + (1 << 28)], minlength=LANES)
+                for i in range(0, n_pos, 1 << 28)).to(torch.int64)
+    del syms
+    total[6] += nblk * 32 - n_pos                          # the tail's pad
+    base = torch.arange(1, LANES + 1, device=device, dtype=torch.int32) * 1000
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.monotonic()
+    rec = build_rec(nib, nblk, base)
+    torch.cuda.synchronize(device)
+    first_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(device) - before
+    if not torch.equal(rec[0, :LANES], base):
+        raise AssertionError("rec_build at the limit: row 0's occ is not "
+                             "the base")
+    for s0 in range(0, nblk, REC_CHECK_SLAB):
+        s1 = min(s0 + REC_CHECK_SLAB, nblk)
+        part = nib[s0 * 16: s1 * 16]
+        counts = block_counts(part, s1 - s0)
+        occ = rec[s0:s1 + 1, :LANES]
+        if not torch.equal(occ[1:] - occ[:-1], counts[: occ.shape[0] - 1]):
+            raise AssertionError(f"rec_build at the limit: occ steps of "
+                                 f"blocks {s0}..{s1} differ from the counts")
+        if not torch.equal(rec[s0:s1, LANES:],
+                           pack_symbol_words(part, s1 - s0)):
+            raise AssertionError(f"rec_build at the limit: packed words of "
+                                 f"blocks {s0}..{s1} differ")
+        if s1 == nblk:
+            last = rec[-1, :LANES].to(torch.int64) + counts[-1]
+            if not torch.equal(last - base.to(torch.int64), total):
+                raise AssertionError("rec_build at the limit: the last row "
+                                     "plus its block's counts is not the "
+                                     "bincount of the text")
+    result = {"positions": n_pos, "nblk": nblk, "first_call_s": first_s,
+              "ms": time_ms(lambda: build_rec(nib, nblk, base), device, 5),
+              "peak_bytes_above_inputs": peak,
+              "table_bytes": rec.numel() * 4, "nibble_bytes": nib.numel(),
+              **rec_bound(nblk)}
+    log(f"rec_build near the int32 limit: {json.dumps(result)}")
+    del rec, nib
+    torch.cuda.empty_cache()
+    return result
+
+
 def numpy_merge(a, b):
     """The port's plain reference merge, on the host in numpy and
     independent of the device path: the trie search over the host rank
@@ -1104,15 +1267,16 @@ def main_path(device, fixtures: Fixtures, reads=MEDIUM,
         # depth, two a singles depth
         extra = counts["streamed_probe"] - walk_launches["streamed_probe"]
         if extra < 2 * (READ_LEN + 1) or counts["walk_emit"] \
-                or counts["walk_planes_build"]:
+                or counts["walk_planes_build"] or counts["rec_build"] < 1:
             raise AssertionError(
                 f"trie main path: {extra} probe launches beyond the walk "
                 f"run's, needs {2 * (READ_LEN + 1)}; launches {counts}")
     elif min(counts["streamed_probe"], counts["walk_emit"],
-             counts["walk_planes_build"]) < 1 or counts["decode"]:
+             counts["walk_planes_build"], counts["rec_build"]) < 1 \
+            or counts["decode"]:
         raise AssertionError(f"the two-input main path launched {counts}: "
-                             f"needs K1, K2 and walk_planes_build, and no "
-                             f"decode")
+                             f"needs K1, K2, walk_planes_build and "
+                             f"rec_build, and no decode")
 
     phases = phase_times(err)
     b_bases = b_runs.size()
@@ -1234,7 +1398,7 @@ def fold_path(device, fixtures: Fixtures, n_patterns=N_PATTERNS) -> dict:
         raise AssertionError("folded symbol counts differ from the pieces' "
                              "sum")
     want = {"streamed_probe": 1, "walk_emit": 6, "walk_planes_build": 3,
-            "decode": 3, "decode_rows_build": 3}
+            "decode": 3, "decode_rows_build": 3, "rec_build": len(paths)}
     if any(counts[k] < n for k, n in want.items()):
         raise AssertionError(f"k-way fold launched {counts}, needs at least "
                              f"{want}")
@@ -1538,6 +1702,220 @@ def medium_interleaves(device, fixtures: Fixtures, workers=(3, 6)) -> dict:
 # -- the multi-device paths ---------------------------------------------------------
 
 
+LARGE = (2_000_000, 1_000_000)    # bench.py SCALES["large"] reads, A and B
+LARGE_SEEDS = (101, 102)          # bench.py:134
+LARGE_BLOCKS = 8                  # bench.py SCALES["large"] search blocks
+LARGE_BUDGET = ("3", "2")         # -r 3 -m 2: 6 Mi runs, bench.py's threshold
+
+
+def build_large_fixture(device, path: str, m: int, seed: int,
+                        sidecar: bool) -> dict:
+    """SGA file of the BWT of m random 50 bp reads (bench.py's recipe and
+    seed) built on the card by the port's build_from_reads, with the
+    read-text sidecar when asked; the symbol counts checked against the
+    reads'.  Cached by path."""
+    from bwtmerge_tpu_torch.formats import write_bwt
+    from bwtmerge_tpu_torch.formats.sidecar import sidecar_path, write_sidecar
+    from bwtmerge_tpu_torch.models.build import alphabet_for, build_from_reads
+
+    if os.path.exists(path) and (not sidecar
+                                 or os.path.exists(sidecar_path(path))):
+        return {"cached": True}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    flat, lengths = packed_reads(m, seed)
+    t0 = time.monotonic()
+    runs, _ = build_from_reads((flat, lengths), backend="torch",
+                               device=str(device))
+    t1 = time.monotonic()
+    want = np.bincount(flat, minlength=6)
+    want[0] = m
+    if not np.array_equal(runs.counts(6), want):
+        raise AssertionError(f"device build of {m} reads: symbol counts "
+                             f"{runs.counts(6)} for {want}")
+    write_bwt(path, "sga", runs, alphabet_for(runs))
+    if sidecar:
+        write_sidecar(sidecar_path(path), lengths, flat)
+    return {"cached": False, "build_s": t1 - t0,
+            "write_s": time.monotonic() - t1, "runs": runs.n_runs}
+
+
+@contextlib.contextmanager
+def indexes_built(device):
+    """Within the block, every device index built is listed as (kind,
+    positions, record slabs, seconds to its table on the card)."""
+    import torch
+
+    from bwtmerge_tpu_torch.ops import rank_sharded, rank_torch
+
+    made = []
+    plain = {"build": rank_torch.DeviceFMIndex.build.__func__,
+             "from_nibbles": rank_torch.DeviceFMIndex.from_nibbles.__func__,
+             "sharded": rank_sharded.ShardedFMIndex.build.__func__}
+
+    def timed(kind):
+        def build(cls, *args, **kw):
+            t0 = time.monotonic()
+            idx = plain[kind](cls, *args, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            made.append((kind, idx.size, len(getattr(idx, "slabs", [0])),
+                         time.monotonic() - t0))
+            return idx
+        return classmethod(build)
+
+    rank_torch.DeviceFMIndex.build = timed("build")
+    rank_torch.DeviceFMIndex.from_nibbles = timed("from_nibbles")
+    rank_sharded.ShardedFMIndex.build = timed("sharded")
+    try:
+        yield made
+    finally:
+        rank_torch.DeviceFMIndex.build = classmethod(plain["build"])
+        rank_torch.DeviceFMIndex.from_nibbles = classmethod(
+            plain["from_nibbles"])
+        rank_sharded.ShardedFMIndex.build = classmethod(plain["sharded"])
+
+
+def rec_build_memory(device, path: str) -> dict:
+    """The large A's record table built by rec_build and by the plain
+    version from the same nibbles: milliseconds and the peak of device
+    memory above the nibbles, each; the two tables equal.  Then the whole
+    index build (DeviceFMIndex.build: host pack, upload, table) of the
+    large A in turns with rec_build and with the plain version in its
+    place, which is the build before rec_build: seconds each."""
+    import torch
+
+    from bwtmerge_tpu_torch.formats import read_bwt
+    from bwtmerge_tpu_torch.native import nib4_pack
+    from bwtmerge_tpu_torch.ops import rank_torch
+    from bwtmerge_tpu_torch.ops.rank_torch import (BLK, NIB_FILL, build_rec,
+                                                   build_rec_plain)
+
+    runs, _, _ = read_bwt(path, "sga")
+    nblk = runs.size() // BLK + 1
+    host = np.full(nblk * BLK // 2, NIB_FILL, dtype=np.uint8)
+    nib4_pack(runs.syms, runs.lens, host)
+    nib = torch.from_numpy(host).to(device)
+    out = {"positions": int(runs.size()), "nblk": nblk}
+    tables = {}
+    for key, fn in (("kernel", build_rec), ("plain", build_rec_plain)):
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        tables[key] = fn(nib, nblk)
+        torch.cuda.synchronize(device)
+        out[f"{key}_peak_bytes_above_nibbles"] = (
+            torch.cuda.max_memory_allocated(device) - before)
+        out[f"{key}_ms"] = time_ms(lambda: fn(nib, nblk), device,
+                                   20 if key == "kernel" else 2)
+    if not torch.equal(tables["kernel"], tables["plain"]):
+        raise AssertionError("rec_build differs from its plain version on "
+                             "the large A")
+    out["table_bytes"] = tables["kernel"].numel() * 4
+    out.update(rec_bound(nblk))
+    del tables, nib
+    counts = runs.counts(6)
+    for key in ("kernel", "plain", "plain", "kernel"):
+        torch.cuda.empty_cache()
+        if key == "plain":
+            rank_torch.build_rec = build_rec_plain
+        try:
+            t0 = time.monotonic()
+            idx = rank_torch.DeviceFMIndex.build(runs, counts, device)
+            torch.cuda.synchronize(device)
+            took = time.monotonic() - t0
+        finally:
+            rank_torch.build_rec = build_rec
+        out.setdefault(f"index_build_s_{key}", []).append(took)
+        del idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def large_path(device) -> dict:
+    """The two-input walk merge at bench.py's large scale: A of 2,000,000
+    and B of 1,000,000 random 50 bp reads (bench.py's seeds; B with its
+    sidecar), built on the card by the port and cached.  bwt_merge A B out
+    -v patterns --device-blocks 8 -r 3 -m 2 -d DIR: the rank array past 6
+    Mi runs drains into several spill files; the output must equal, byte
+    for byte, the same merge's without the spill and the --search trie
+    merge's; rec_build must have launched once an index built.  Then the
+    large A's table by rec_build and by the plain version: time and peak
+    device memory."""
+    from bwtmerge_tpu_torch.formats import read_bwt
+
+    d = os.path.join(CACHE, f"large_{LARGE[0]}_{LARGE[1]}")
+    a_path, b_path = os.path.join(d, "a.sga"), os.path.join(d, "b.sga")
+    t0 = time.monotonic()
+    made = {"a": build_large_fixture(device, a_path, LARGE[0], LARGE_SEEDS[0],
+                                     False),
+            "b": build_large_fixture(device, b_path, LARGE[1], LARGE_SEEDS[1],
+                                     True)}
+    pat_path = os.path.join(d, f"patterns_{N_PATTERNS}.txt")
+    if not os.path.exists(pat_path):
+        write_patterns(pat_path, [reads_of(m, seed) for m, seed
+                                  in zip(LARGE, LARGE_SEEDS)], N_PATTERNS, 3)
+    log(f"large fixtures ready in {time.monotonic() - t0:.1f} s: "
+        f"{json.dumps(made)}")
+    spill_dir = os.path.join(d, "spill")
+    os.makedirs(spill_dir, exist_ok=True)
+    common = ["-i", "sga", "-o", "sga", "--device", str(device)]
+    runs_of = {
+        "spilled_walk_v": ["-v", pat_path, "--device-blocks",
+                           str(LARGE_BLOCKS), "-r", LARGE_BUDGET[0], "-m",
+                           LARGE_BUDGET[1], "-d", spill_dir],
+        "walk": ["--device-blocks", str(LARGE_BLOCKS)],
+        "trie": ["--search", "trie"]}
+    b_bases = read_bwt(b_path, "sga")[0].size()
+    result = {"a_reads": LARGE[0], "b_reads": LARGE[1], "b_bases": b_bases}
+    outs = {}
+    for name, extra in runs_of.items():
+        outs[name] = os.path.join(d, f"merged_{name}.sga")
+        with spill_files_made() as spilled, indexes_built(device) as built:
+            rc, std, err, counts, wall = run_cli(
+                [a_path, b_path, outs[name], *common, *extra])
+        if rc != 0:
+            raise AssertionError(f"large merge {name} exited {rc}")
+        n_tables = sum(slabs for _, _, slabs, _ in built)
+        if device.type == "cuda" and counts["rec_build"] != n_tables:
+            raise AssertionError(f"large merge {name}: rec_build launched "
+                                 f"{counts['rec_build']} times for "
+                                 f"{n_tables} record tables built")
+        if name == "spilled_walk_v" and (len(spilled) < 2
+                                         or os.listdir(spill_dir)):
+            raise AssertionError(f"large merge {name}: spill files "
+                                 f"{spilled}, left {os.listdir(spill_dir)}")
+        if name != "spilled_walk_v" and spilled:
+            raise AssertionError(f"large merge {name} spilled {spilled}")
+        need = ("streamed_probe", "walk_emit", "walk_planes_build") \
+            if name == "spilled_walk_v" else \
+            ("walk_emit",) if name == "walk" else ("streamed_probe",)
+        if device.type == "cuda" and any(counts[k] < 1 for k in need):
+            raise AssertionError(f"large merge {name} launched {counts}")
+        phases = phase_times(err)
+        merge_s = (phases.get("search (rank array)", 0)
+                   + phases.get("merge (interleave)", 0))
+        result[name] = {
+            "phases_s": phases, "verify_s": verify_times(std),
+            "index_builds": [{"kind": k, "positions": n, "tables": t,
+                              "s": sec} for k, n, t, sec in built],
+            "spill_files": len(spilled),
+            "spill_bytes": sum(x[1] for x in spilled),
+            "merge_mbases_s": b_bases / 1e6 / max(merge_s, 1e-9),
+            "wall_s": wall, "launches": counts}
+        log(f"large merge ({name}), {LARGE[0]}+{LARGE[1]} reads: "
+            f"{json.dumps(result[name])}")
+    for name in ("walk", "trie"):
+        same_bytes(outs[name], outs["spilled_walk_v"],
+                   f"large merge, {name} against the spilled walk")
+    for out in outs.values():
+        os.remove(out)
+    result["rec_build_large_a"] = rec_build_memory(device, a_path)
+    log(f"rec_build and the plain build, large A: "
+        f"{json.dumps(result['rec_build_large_a'])}")
+    return result
+
+
 def p5_spill(device, fixtures: Fixtures, run_buffer: str = "1") -> dict:
     """The medium walk merge with -r 1 -m 2 (a budget of 2 Mi runs) and -d:
     the rank array's blocks past the budget drain into spill files under
@@ -1630,7 +2008,7 @@ def mesh_routes(device, fixtures: Fixtures, sizes=(2, 4)) -> dict:
             need = {"walk": {"walk_emit": n, "walk_planes_build": 1},
                     "trie_one_block_a_shard": {"streamed_probe": n},
                     "trie_dynamic_queue": {"streamed_probe": n},
-                    "sharded_index": {}}[name]
+                    "sharded_index": {"rec_build": 2 * n}}[name]
             if device.type == "cuda" and any(counts[k] < v
                                              for k, v in need.items()):
                 raise AssertionError(f"mesh of {n}, {name}: launches "
@@ -1844,6 +2222,7 @@ def main() -> int:
         records = check_kernels(device, K1_POSITIONS, K1_QUERIES,
                                 K1_SENTINELS, K2_SHAPE)
         records += check_decode(device, fixtures.get("k3"))
+        records += check_rec_build(device)
         small_merge(device, fixtures)
         small_fold(device, fixtures)
         small_trie(device, fixtures)
@@ -1861,6 +2240,12 @@ def main() -> int:
         construction_timing(device)
         construction(device, fixtures)
         medium_interleaves(device, fixtures)
+        # bench.py's large scale, then the record build near the layout's
+        # limit
+        large = large_path(device)
+        for key in ("spilled_walk_v", "walk", "trie"):
+            paths[f"large_{key}"] = large[key]
+        rec_build_near_limit(device)
         # the multi-device paths, on meshes that repeat the one card
         p5 = p5_spill(device, fixtures)
         p5["main_path_peak_pinned_host_bytes"] = \

@@ -16,6 +16,8 @@ from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
                                                  decode_creads_plain)
 from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
                                                   streamed_probe_plain)
+from bwtmerge_tpu_torch.ops.rank_torch import (build_rec, build_rec_plain,
+                                               rec_build)
 from bwtmerge_tpu_torch.ops.walk_torch import (SUPER,
                                                build_walk_planes,
                                                build_walk_planes_plain,
@@ -113,6 +115,50 @@ def test_decode_rows_build_kernel_matches_plain(cuda):
         got = build_decode_rows(idx.rec)
         assert kernels.DECODE_ROWS_BUILD.launches == before + 1
         assert torch.equal(got, build_decode_rows_plain(idx.rec))
+
+
+def _card_nibbles(nblk, device, seed):
+    """Random block-planar nibbles of nblk blocks on `device`: symbols 0..5
+    and, from a random point of the last block on, the pad symbol 6."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    syms = torch.randint(0, 6, (nblk * 32,), generator=gen, device=device,
+                         dtype=torch.uint8)
+    syms[nblk * 32 - 1 - seed % 32:] = 6
+    blocks = syms.view(nblk, 32)
+    return (blocks[:, :16] | (blocks[:, 16:] << 4)).reshape(-1)
+
+
+@pytest.mark.parametrize("nblk", [1, 2, 255, 256, 257, 511, 513,
+                                  (1 << 20) + 3])
+def test_rec_build_kernel_matches_plain(cuda, nblk):
+    nib = _card_nibbles(nblk, cuda, nblk)
+    base = torch.randint(0, 1 << 30, (8,), device=cuda, dtype=torch.int32)
+    for b in (None, base):
+        before = kernels.REC_BUILD.launches
+        got = build_rec(nib, nblk, b)
+        assert kernels.REC_BUILD.launches == before + 1
+        torch.cuda.synchronize(cuda)
+        assert torch.equal(got, build_rec_plain(nib, nblk, b))
+    # a buffer longer than the table, as the packers leave it
+    longer = torch.cat([nib, torch.full((48,), 0x66, dtype=torch.uint8,
+                                        device=cuda)])
+    assert torch.equal(build_rec(longer, nblk), build_rec_plain(nib, nblk))
+
+
+def test_rec_build_rejects_bad_inputs(cuda):
+    nib = _card_nibbles(8, cuda, 1)
+    with pytest.raises(ValueError):
+        build_rec(nib.to(torch.int8), 8)                  # wrong dtype
+    with pytest.raises(ValueError):
+        build_rec(torch.cat([nib, nib])[::2], 8)          # not contiguous
+    with pytest.raises(ValueError):
+        build_rec(nib[1:129], 8)                          # not 16-B aligned
+    with pytest.raises(ValueError):
+        build_rec(nib, 9)                                 # a short buffer
+    with pytest.raises(ValueError):
+        rec_build(nib.cpu(), 8)                           # a CPU tensor
+    with pytest.raises(ValueError):
+        build_rec(nib, 8, torch.zeros(7, dtype=torch.int32))
 
 
 def test_wrappers_reject_cpu_cuda_mix(cuda):

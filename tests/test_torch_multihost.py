@@ -104,6 +104,11 @@ def worker(pid: int, port: str, out_dir: str) -> None:
         np.savez(os.path.join(out_dir, "combined.npz"), values=v, counts=c,
                  range_runs=my_v.size, masses=masses,
                  total_mass=int(c_all.sum()))
+    # leave the world together: a gloo group still alive at interpreter
+    # exit can abort the process in its teardown
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def test_two_process_merge_matches_jax(tmp_path):

@@ -220,3 +220,121 @@ def test_size_limit_refused():
 
     with pytest.raises(ValueError, match="int32"):
         rank_torch.DeviceFMIndex.build(_Huge, np.zeros(6, np.int64), "cpu")
+
+
+# -- the record build (B3): plain version, slabs and the wrapper ------------
+
+
+def _nibbles(nblk, seed, pad_from=None):
+    """Seeded block-planar nibbles of nblk blocks: symbols 0..5, SIGMA from
+    position pad_from on (the tail block's pad)."""
+    rng = np.random.default_rng(seed)
+    syms = rng.integers(0, rank_torch.SIGMA, size=nblk * 32).astype(np.uint8)
+    if pad_from is not None:
+        syms[pad_from:] = rank_torch.SIGMA
+    blk = syms.reshape(nblk, 32)
+    return (blk[:, :16] | (blk[:, 16:] << 4)).reshape(-1)
+
+
+@pytest.mark.parametrize("nblk,pad_from", [(1, 0), (1, 17), (2, 40),
+                                           (255, None), (257, 8000),
+                                           (1000, 31_999)])
+def test_build_rec_plain_matches_jax(nblk, pad_from):
+    nib = _nibbles(nblk, nblk, pad_from)
+    want = np.asarray(rank_jax._build_rec_device(jnp.asarray(nib)))
+    got = rank_torch.build_rec_plain(torch.from_numpy(nib), nblk)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the wrapper takes the plain version for a CPU tensor
+    np.testing.assert_array_equal(
+        rank_torch.build_rec(torch.from_numpy(nib), nblk).numpy(), want)
+
+
+@pytest.mark.parametrize("start_blk,slab_blk", [(0, 4), (3, 8), (100, 64)])
+def test_build_rec_plain_with_a_base_matches_jax_slab(start_blk, slab_blk):
+    nib = _nibbles(start_blk + slab_blk + 5, 7, pad_from=None)
+    base = np.random.default_rng(start_blk).integers(
+        0, 1 << 20, size=rank_torch.LANES).astype(np.int32)
+    want, counts = rank_jax._build_rec_slab(
+        jnp.asarray(nib), jnp.int32(start_blk * 16), slab_blk * 16,
+        jnp.asarray(base))
+    part = torch.from_numpy(nib[start_blk * 16:(start_blk + slab_blk) * 16])
+    for fn in (rank_torch.build_rec_plain, rank_torch.build_rec):
+        got = fn(part, slab_blk, torch.from_numpy(base))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the slab's totals: its last row plus its last block's counts
+    last = rank_torch.unpack_symbols(got[-1:, 8:])[0]
+    total = got[-1, :8].numpy() - base + np.bincount(
+        last.numpy(), minlength=rank_torch.LANES)
+    np.testing.assert_array_equal(total, np.asarray(counts))
+
+
+@pytest.mark.parametrize("slab_blk,n_slabs,short", [(4, 3, 0), (8, 5, 3),
+                                                    (64, 4, 1)])
+def test_slab_by_slab_build_matches_build_rec_slabbed(monkeypatch, slab_blk,
+                                                      n_slabs, short):
+    # the JAX slab loop engages from three slabs up; the port builds each
+    # slab with its running base and concatenates
+    monkeypatch.setattr(rank_jax, "REC_SLAB_BLK", slab_blk)
+    total_blk = slab_blk * n_slabs
+    nib = _nibbles(total_blk, slab_blk, pad_from=total_blk * 32 - 50)
+    nblk = total_blk - short
+    want = np.asarray(rank_jax.build_rec_slabbed(jnp.asarray(nib), nblk))
+    assert want.shape == (nblk, 16)
+    parts, base = [], torch.zeros(rank_torch.LANES, dtype=torch.int64)
+    for s in range(n_slabs):
+        part = torch.from_numpy(nib[s * slab_blk * 16:(s + 1) * slab_blk * 16])
+        parts.append(rank_torch.build_rec(part, slab_blk, base))
+        base += torch.bincount(torch.cat([part & 0xF, part >> 4]).long(),
+                               minlength=16)[:rank_torch.LANES]
+    got = torch.cat(parts)[:nblk]
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        rank_torch.build_rec(torch.from_numpy(nib), nblk).numpy(), want)
+
+
+def test_index_builds_go_through_the_wrapper(monkeypatch):
+    # every index build reaches the record table through build_rec (which
+    # launches rec_build on a card), never through the plain version
+    from bwtmerge_tpu_torch.ops import rank_sharded
+
+    calls = []
+    wrapper = rank_torch.build_rec
+
+    def counting(nibbles, nblk, base=None):
+        calls.append((nblk, base is not None))
+        return wrapper(nibbles, nblk, base)
+
+    monkeypatch.setattr(rank_torch, "build_rec", counting)
+    monkeypatch.setattr(rank_sharded, "build_rec", counting)
+    runs = oracle.build_bwt(_collection(2))
+    want = np.asarray(rank_jax.DeviceFMIndex.build(runs, runs.counts(6)).rec)
+    nblk = runs.size() // 32 + 1
+    built = rank_torch.DeviceFMIndex.build(runs, runs.counts(6), "cpu")
+    assert calls == [(nblk, False)]
+    np.testing.assert_array_equal(built.rec.numpy(), want[:nblk])
+    nib, counts, size, n_runs = rank_torch.pack_nibbles_chunked(
+        runs.iter_chunks(1 << 10))
+    packed = rank_torch.DeviceFMIndex.from_nibbles(nib, counts, size, n_runs,
+                                                   "cpu")
+    assert calls[1:] == [(nblk, False)]
+    np.testing.assert_array_equal(packed.rec.numpy(), want[:nblk])
+    sharded = rank_sharded.ShardedFMIndex.build(runs, runs.counts(6),
+                                                mesh=["cpu"] * 3)
+    assert calls[2:] == [(sharded.slab, True)] * 3
+    np.testing.assert_array_equal(
+        torch.cat(sharded.slabs)[:nblk].numpy(), want[:nblk])
+
+
+def test_rec_build_entry_rejects_bad_inputs():
+    nib = torch.from_numpy(_nibbles(4, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        rank_torch.rec_build(nib, 4)                  # a CPU tensor
+    for bad in (nib.to(torch.int8), nib.view(4, 16)):
+        with pytest.raises(ValueError, match="uint8"):
+            rank_torch.build_rec(bad, 4)
+    with pytest.raises(ValueError, match="bytes"):
+        rank_torch.build_rec(nib, 5)                  # a short buffer
+    with pytest.raises(ValueError, match="bytes"):
+        rank_torch.build_rec(nib, 0)
+    with pytest.raises(ValueError, match="base"):
+        rank_torch.build_rec(nib, 4, torch.zeros(6, dtype=torch.int32))
