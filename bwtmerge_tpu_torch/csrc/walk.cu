@@ -51,7 +51,28 @@
 // symbols into its five masks.  The eight threads of a super-block write
 // the eight words of a row together, so every store fills whole sectors;
 // the record table is read once (the symbol half of every record, the occ
-// half of every seventh).
+// half of every seventh), 186 MB at 100 M positions: 0.055 ms at 3.35 TB/s.
+// Taking each of a block's 32 symbol bytes out with a shift and comparing
+// it five times costs some 500 instructions a block, as long as the bytes
+// take.  So the masks are made by SWAR (129 SASS instructions a thread),
+// and the instructions hide under the bytes: a pair of symbol words
+// (positions 8p .. 8p+7, bytes 0..15) is folded into one word
+// q = lo | hi << 4, (q >> k) & 0x11111111 holds bit k of the eight
+// symbols at bits 8i and 8i+4, and one multiply by 0x01020408 gathers them
+// into the top byte in position order (the eight partial products fall on
+// distinct bits, so nothing carries).  Three byte permutes put the four
+// pairs' bytes into bit plane k; each character's mask is then an AND of
+// the four planes or their complements.  Symbol bytes are 0..15, as every
+// record table of the port holds them.  What bounds it now, measured on an
+// NVIDIA H100 80GB HBM3 at 700 W: 0.089 ms of device time at 100 M
+// positions, which is the whole 64-byte records (200 MB) and the planes
+// (71 MB) at the card's copy rate.  A read-only probe kernel
+// (chip_smoke.py, record_read_probe) reads the 32-byte second half of
+// every 64-byte record of a 1 GiB table in the same time as the whole
+// records (0.336 against 0.335 ms, 3.2 TB/s for the whole): device memory
+// moves 64 bytes for each half record read, so reading only the symbol
+// halves saves no time, and the bound, which counts 32 bytes a record,
+// is out of reach for this table layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +147,17 @@ walk_emit_kernel(const uint4* __restrict__ planes, const int* __restrict__ C,
   }
 }
 
+// Bit plane K of the block's 32 symbols, in position order: bit 8p + j of
+// the result is bit K of position 8p + j.
+template <int K>
+__device__ __forceinline__ uint32_t symbol_plane(const uint32_t q[4]) {
+  uint32_t t[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) t[p] = ((q[p] >> K) & 0x11111111u) * 0x01020408u;
+  return __byte_perm(__byte_perm(t[0], t[1], 0x0073),
+                     __byte_perm(t[2], t[3], 0x0073), 0x5410);
+}
+
 __global__ void __launch_bounds__(kThreads)
 walk_planes_build_kernel(const uint4* __restrict__ rec, int64_t nblk,
                          int64_t n_sb, uint32_t* __restrict__ planes) {
@@ -143,17 +175,17 @@ walk_planes_build_kernel(const uint4* __restrict__ rec, int64_t nblk,
     if (blk < nblk) {
       const uint4* row = rec + blk * 4;
       uint4 s0 = __ldg(row + 2), s1 = __ldg(row + 3);
-      const uint32_t w[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          uint32_t sym = (w[k] >> (8 * b)) & 0xFFu;
-#pragma unroll
-          for (int c = 0; c < kNC; ++c)
-            out[c] |= sym == (uint32_t)(c + 1) ? (1u << (4 * k + b)) : 0u;
-        }
-      }
+      // pair p: words 2p and 2p+1, positions 8p .. 8p+7
+      const uint32_t q[4] = {s0.x | (s0.y << 4), s0.z | (s0.w << 4),
+                             s1.x | (s1.y << 4), s1.z | (s1.w << 4)};
+      const uint32_t p0 = symbol_plane<0>(q), p1 = symbol_plane<1>(q),
+                     p2 = symbol_plane<2>(q), p3 = symbol_plane<3>(q);
+      const uint32_t lo = ~p2 & ~p3, hi = p2 & ~p3;   // symbols 0..3, 4..7
+      out[0] = p0 & ~p1 & lo;      // 1
+      out[1] = ~p0 & p1 & lo;      // 2
+      out[2] = p0 & p1 & lo;       // 3
+      out[3] = ~p0 & ~p1 & hi;     // 4
+      out[4] = p0 & ~p1 & hi;      // 5
     }
   }
   uint32_t* dst = planes + sb * (kNC * 8) + slot;

@@ -40,7 +40,9 @@ REC = 16         # int32 words per record: 8 occ + 8 packed-symbol words
 NIB_FILL = SIGMA | (SIGMA << 4)  # pad byte: no query lane counts SIGMA
 SENT = 2**31 - 1
 STREAMED_MIN_BATCH = 1 << 14     # batch_count's switch to the streamed search
-REC_TILE = 256   # record blocks a tile of csrc/rec_build.cu (its kThreads)
+REC_TILE = 1024  # record blocks a tile of csrc/rec_build.cu (its kTile)
+REC_THREADS = 256    # threads a tile (its kThreads): 4 blocks a thread
+REC_STATUS_WORDS = 16   # int32 words of look-back status a tile
 
 
 def c_array(counts) -> np.ndarray:
@@ -193,7 +195,8 @@ def build_rec(nibbles: torch.Tensor, nblk: int, base=None) -> torch.Tensor:
 def rec_build(nibbles: torch.Tensor, nblk: int, base=None) -> torch.Tensor:
     """The kernel's entry: rec_build of csrc/rec_build.cu on the nibbles'
     CUDA device (contiguous, 16-byte aligned); raises for any other
-    tensor.  Allocates the table and the kernel's tile counts."""
+    tensor.  Allocates the table and the kernel's look-back status (64 B
+    a tile and the tile counter), which the launch zeroes."""
     _check_nibbles(nibbles, nblk)
     if nibbles.device.type != "cuda":
         raise ValueError(f"rec_build: needs a CUDA tensor, got one on "
@@ -201,13 +204,13 @@ def rec_build(nibbles: torch.Tensor, nblk: int, base=None) -> torch.Tensor:
     if not nibbles.is_contiguous() or nibbles.data_ptr() % 16:
         raise ValueError("rec_build needs contiguous, 16-byte aligned "
                          "nibbles")
-    base_row = (torch.zeros(LANES, dtype=torch.int32, device=nibbles.device)
-                if base is None else _base_row(base, nibbles.device))
-    tiles = torch.empty(-(-nblk // REC_TILE) * LANES, dtype=torch.int32,
-                        device=nibbles.device)
+    base_row = None if base is None else _base_row(base, nibbles.device)
+    tiles = torch.empty(-(-nblk // REC_TILE) * REC_STATUS_WORDS + 2,
+                        dtype=torch.int32, device=nibbles.device)
     rec = torch.empty((nblk, REC), dtype=torch.int32, device=nibbles.device)
     with torch.cuda.device(nibbles.device):
-        REC_BUILD.launch(nibbles.data_ptr(), nblk, base_row.data_ptr(),
+        REC_BUILD.launch(nibbles.data_ptr(), nblk,
+                         None if base_row is None else base_row.data_ptr(),
                          tiles.data_ptr(), tiles.numel(), rec.data_ptr())
     return rec
 

@@ -22,8 +22,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode_rows_build) are held against their plain versions on the same
    record tables.  rec_build, the record table's build, is held against
    build_rec_plain at the medium A's size (26.7 M random positions) with a
-   zero and a random base, and at 1, 255, 256, 257 and 2^20 + 3 blocks,
-   and timed beside torch.cumsum over the transposed [8, NBLK] counts.
+   zero and a random base, and at 1, 255, 256, 257, 1023, 1024, 1025,
+   2049 and 2^20 + 3 blocks, and timed beside torch.cumsum over the
+   transposed [8, NBLK] counts.
    Each kernel's bound is computed from these inputs;
 4. small exact merge: 20k + 10k random 50 bp reads merged by the port on
    the card (in three read blocks) and by the port's plain numpy
@@ -126,8 +127,19 @@ Then the multi-device paths, on meshes that repeat the one card:
     the single-device build, both timed; then one line of what one card
     cannot show (copies between GPUs, NCCL);
 19. bwt_merge --profile DIR on the small pair must leave one non-empty
-    trace and the small merge's bytes (last of all: a profiler, once started,
-    leaves its tracing library loaded, and later launches pay for it).
+    trace and the small merge's bytes (last but one: a profiler, once
+    started, leaves its tracing library loaded, and later launches pay for
+    it);
+20. the table builders' profile: rec_build at the medium A's size, the
+    large A's and 2^31 - 2 positions, and walk_planes_build over 100 M
+    positions, each timed with CUDA events and then under torch.profiler
+    (each kernel's device time a call and its share); their sources
+    compiled again with -Xptxas -v (registers, spills, shared memory) and
+    read back with cuobjdump -sass (static instruction counts, popcounts,
+    shuffles), whence each builder's instructions a record block, written
+    into their records of the kernels' JSON line; and a read-only probe
+    kernel that reads the symbol half of every 64-byte record of a 1 GiB
+    table, against one that reads the whole records.
 
 Phases 7, 9, 14 and 15 also log the pinned host bytes that the rank
 array's blocks held (ops/ra_stream.py), beside B's size.
@@ -857,7 +869,9 @@ def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
     return [rec, kb]
 
 
-REC_EDGE_BLOCKS = (1, 255, 256, 257, (1 << 20) + 3)   # rec_build: 256 a tile
+# rec_build at one block, the edges of the first design's tile (256) and of
+# this design's (1024, REC_TILE), two tiles and one, and 1025 tiles
+REC_EDGE_BLOCKS = (1, 255, 256, 257, 1023, 1024, 1025, 2049, (1 << 20) + 3)
 REC_LIMIT_POSITIONS = 2**31 - 2      # the largest index the int32 layout takes
 REC_CHECK_SLAB = 1 << 22             # blocks a slab of the limit's checks
 
@@ -983,6 +997,270 @@ def rec_build_near_limit(device, n_pos: int = REC_LIMIT_POSITIONS,
     log(f"rec_build near the int32 limit: {json.dumps(result)}")
     del rec, nib
     torch.cuda.empty_cache()
+    return result
+
+
+BUILDER_SOURCES = ("rec_build.cu", "walk.cu")
+LARGE_A_POSITIONS = LARGE_A_READS * (READ_LEN + 1)
+
+
+def _kernel_name(name: str) -> str:
+    """A kernel's own name from its mangled name (the last identifier of
+    _ZN<len><id>...E) or from a demangled one."""
+    ids, i = [], 3
+    while name.startswith("_ZN") and i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        ids.append(name[j:j + int(name[i:j])])
+        i = j + int(name[i:j])
+    if ids:
+        return ids[-1]
+    m = re.search(r"([A-Za-z_]\w*_kernel)\b", name)
+    return m.group(1) if m else name
+
+
+def builder_build_facts() -> dict:
+    """The two builders' sources compiled to cubins with -Xptxas -v (one
+    nvcc each, together): each kernel's registers, spill bytes and shared
+    memory as ptxas states them, its ptxas lines, and from cuobjdump -sass
+    its static count of SASS instructions (NOPs left out), of them POPC and
+    SHFL.  Loops count once; the builders' per-block work is unrolled."""
+    from bwtmerge_tpu_torch import kernels
+
+    nvcc = kernels._nvcc()
+    flags = [f for f in kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    procs = []
+    for src in BUILDER_SOURCES:
+        cubin = os.path.join(kernels.BUILD_DIR, src.replace(".cu", ".cubin"))
+        procs.append((cubin, subprocess.Popen(
+            [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o", cubin,
+             os.path.join(kernels.CSRC_DIR, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    facts = {}
+    for cubin, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc -Xptxas -v failed:\n{out}")
+        name = None
+        for line in out.splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                name = _kernel_name(m.group(1))
+                facts[name] = {"ptxas": []}
+            if name is None or "ptxas info" not in line and \
+                    "spill" not in line:
+                continue
+            facts[name]["ptxas"].append(line.strip())
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                facts[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                facts[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                facts[name]["static_smem_bytes"] = int(m.group(1))
+        if not os.path.exists(cuobjdump):
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = _kernel_name(m.group(1))
+                facts.setdefault(name, {}).update(
+                    sass_instructions=0, sass_popc=0, sass_shfl=0)
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+            if name is None or not m:
+                continue
+            ops = [t for t in m.group(1).split() if not t.startswith("@")]
+            if not ops or ops[0].startswith("NOP"):
+                continue
+            f = facts[name]
+            f["sass_instructions"] += 1
+            f["sass_popc"] += ops[0].startswith("POPC")
+            f["sass_shfl"] += ops[0].startswith("SHFL")
+    for name, f in sorted(facts.items()):
+        log(f"ptxas/sass {name}: " + json.dumps(
+            {k: v for k, v in f.items() if k != "ptxas"}))
+        for line in f.get("ptxas", ()):
+            log(f"  {line}")
+    return facts
+
+
+# A probe, not a kernel of the port: each thread reads 16-byte chunks
+# kFirst..3 of one 64-byte record and folds them to a word that is stored
+# only if it hits a value the probe's table does not hold, so the loads
+# stay live and nothing is written.
+READ_PROBE_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+template <int kFirst>
+__global__ void read_records(const uint4* __restrict__ rec, int64_t n,
+                             unsigned* out) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  unsigned acc = 0;
+#pragma unroll
+  for (int c = kFirst; c < 4; ++c) {
+    const uint4 v = __ldg(rec + r * 4 + c);
+    acc ^= v.x ^ v.y ^ v.z ^ v.w;
+  }
+  if (acc == 0xFFFFFFFFu) out[0] = acc;
+}
+
+extern "C" int read_records_launch(const void* rec, int64_t n, int half,
+                                   void* out, void* stream) {
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (half)
+    read_records<2><<<blocks, 256, 0, s>>>((const uint4*)rec, n,
+                                           (unsigned*)out);
+  else
+    read_records<0><<<blocks, 256, 0, s>>>((const uint4*)rec, n,
+                                           (unsigned*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def record_read_probe(device, calls: int, n_rec: int = 1 << 24) -> dict:
+    """What device memory moves when a kernel reads one 32-byte half of
+    each 64-byte record, as walk_planes_build reads the symbol halves:
+    READ_PROBE_CU, built here, reads the second half of every record of a
+    1 GiB table (four times the L2) against the whole records.  The ratio
+    of the times is 0.5 if 32-byte sectors move alone, 1.0 if whole
+    records do."""
+    import ctypes
+
+    import torch
+
+    from bwtmerge_tpu_torch import kernels
+
+    src = os.path.join(kernels.BUILD_DIR, "read_probe.cu")
+    lib = os.path.join(kernels.BUILD_DIR, "libread_probe.so")
+    with open(src, "w") as f:
+        f.write(READ_PROBE_CU)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src],
+                   check=True)
+    fn = ctypes.CDLL(lib).read_records_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    # values below 2^30 never fold to the all-ones word the probe stores
+    rec = torch.randint(0, 1 << 30, (n_rec, 16), dtype=torch.int32,
+                        device=device)
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def read(half):
+        code = fn(rec.data_ptr(), n_rec, half, out.data_ptr(),
+                  torch.cuda.current_stream(device).cuda_stream)
+        if code:
+            raise AssertionError(f"read probe launch failed ({code})")
+
+    res = {"records": n_rec,
+           "symbol_half_read_ms": time_ms(lambda: read(1), device, calls),
+           "whole_record_read_ms": time_ms(lambda: read(0), device, calls)}
+    res["half_over_whole"] = (res["symbol_half_read_ms"]
+                              / res["whole_record_read_ms"])
+    res["whole_record_read_bytes_s"] = (n_rec * 64
+                                        / (res["whole_record_read_ms"] * 1e-3))
+    if out.item():
+        raise AssertionError("read probe stored a word")
+    return res
+
+
+def _device_us_by_kernel(prof) -> dict:
+    """Device microseconds summed by kernel name in a profiler session,
+    with the call counts."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0)))
+        name = _kernel_name(ev.key) if "_kernel" in ev.key else ev.key[:48]
+        calls, total = out.get(name, (0, 0.0))
+        out[name] = (calls + ev.count, total + us)
+    return out
+
+
+def builder_profile(device, calls: int = 20) -> dict:
+    """The two table builders under torch.profiler: rec_build at the medium
+    A's size, the large A's and 2^31 - 2 positions (random symbols), and
+    walk_planes_build over 100 M positions; each kernel's device
+    microseconds a call and its share of the call's device time.  Also
+    CUDA-event milliseconds a call of each, taken before the profiler
+    starts, and the sources' ptxas and SASS figures, with each builder's
+    instructions a record block (the static SASS count of its kernel over
+    the blocks a thread builds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bwtmerge_tpu_torch.ops import rank_torch
+    from bwtmerge_tpu_torch.ops.walk_torch import build_walk_planes
+
+    facts = builder_build_facts()
+    result = {"facts": facts, "cases": {}}
+
+    def counted(kernel, per):
+        n = facts.get(kernel, {}).get("sass_instructions")
+        return n / per if n else None
+
+    result["rec_build_instructions_a_block"] = counted(
+        "rec_build_kernel", rank_torch.REC_TILE // rank_torch.REC_THREADS)
+    result["walk_planes_build_instructions_a_block"] = counted(
+        "walk_planes_build_kernel", 1)
+    cases = [("rec_build_medium", MEDIUM[0] * (READ_LEN + 1)),
+             ("rec_build_large_a", LARGE_A_POSITIONS),
+             ("rec_build_limit", REC_LIMIT_POSITIONS),
+             ("walk_planes_build_100m", K1_POSITIONS)]
+    for key, n_pos in cases:
+        if key.startswith("rec_build"):
+            _, nib, nblk = random_nibbles(n_pos, device, 29)
+            fn = (lambda nib=nib, nblk=nblk: rank_torch.build_rec(nib, nblk))
+            bnd = rec_bound(nblk)
+        else:
+            idx = random_index(n_pos, device, 29)
+            nblk = idx.rec.shape[0]
+            fn = (lambda rec=idx.rec: build_walk_planes(rec))
+            planes = fn()
+            bnd = bound((nblk + planes.shape[0]) * 32 + planes.numel() * 4,
+                        nblk * 32 * 5 * 2)
+            del planes
+        ms = time_ms(fn, device, calls)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(device)
+        # a profiler started after another in the process may drop some
+        # calls' events: each kernel is averaged over its own events
+        by = _device_us_by_kernel(prof)
+        per_call = sum(us / max(c, 1) for c, us in by.values())
+        result["cases"][key] = {
+            "positions": n_pos, "nblk": nblk, "ms": ms,
+            "bound_ms": bnd["bound_ms"], "share_of_bound": bnd["bound_ms"] / ms,
+            "profiled_device_us_a_call": per_call,
+            "kernels": {k: {"calls": c, "us_a_call": us / max(c, 1),
+                            "share": (us / max(c, 1) / per_call
+                                      if per_call else None)}
+                        for k, (c, us) in sorted(by.items())}}
+        log(f"builder profile {key}: {json.dumps(result['cases'][key])}")
+        del fn
+        torch.cuda.empty_cache()
+    result["record_reads"] = record_read_probe(device, calls)
+    log(f"record read probe: {json.dumps(result['record_reads'])}")
     return result
 
 
@@ -2267,7 +2545,19 @@ def main() -> int:
             "visible_gpus": t2["visible_gpus"],
             "peer_copies": t2["visible_gpus"] >= 2, "nccl": False}}))
         cli_profile(device, fixtures)
+        profiled = builder_profile(device)
     for rec in records:
+        if rec["name"] in ("rec_build", "walk_planes_build"):
+            key = rec["name"]
+            prefix = "rec_" if key == "rec_build" else "walk_planes"
+            rec["instructions_a_block"] = profiled[
+                f"{key}_instructions_a_block"]
+            rec["sass"] = {k: {f: v for f, v in fact.items() if f != "ptxas"}
+                           for k, fact in profiled["facts"].items()
+                           if k.startswith(prefix)}
+            rec["profile"] = {c: {"ms": r["ms"], "kernels": r["kernels"]}
+                              for c, r in profiled["cases"].items()
+                              if c.startswith(key)}
         by_path = {k: r["launches"][rec["name"]] for k, r in paths.items()}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path

@@ -16,8 +16,8 @@ from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
                                                  decode_creads_plain)
 from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
                                                   streamed_probe_plain)
-from bwtmerge_tpu_torch.ops.rank_torch import (build_rec, build_rec_plain,
-                                               rec_build)
+from bwtmerge_tpu_torch.ops.rank_torch import (REC_TILE, build_rec,
+                                               build_rec_plain, rec_build)
 from bwtmerge_tpu_torch.ops.walk_torch import (SUPER,
                                                build_walk_planes,
                                                build_walk_planes_plain,
@@ -143,6 +143,38 @@ def test_rec_build_kernel_matches_plain(cuda, nblk):
     longer = torch.cat([nib, torch.full((48,), 0x66, dtype=torch.uint8,
                                         device=cuda)])
     assert torch.equal(build_rec(longer, nblk), build_rec_plain(nib, nblk))
+
+
+@pytest.mark.parametrize("nblk", [1, REC_TILE - 1, REC_TILE, REC_TILE + 1,
+                                  2 * REC_TILE + 1, (1 << 22) + 5])
+def test_rec_build_kernel_at_the_tile_edges(cuda, nblk):
+    # one tile, its edges, a second and a third tile, and 4097 tiles: more
+    # than the card holds at once, so the look-back crosses waves
+    nib = _card_nibbles(nblk, cuda, nblk % 31)
+    gen = torch.Generator(device=cuda).manual_seed(nblk)
+    base = torch.randint(-2**31, 2**31 - 1, (8,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    for b in (None, base):
+        before = kernels.REC_BUILD.launches
+        got = build_rec(nib, nblk, b)
+        assert kernels.REC_BUILD.launches == before + 1
+        torch.cuda.synchronize(cuda)
+        assert torch.equal(got, build_rec_plain(nib, nblk, b))
+
+
+@pytest.mark.parametrize("nblk", [700 + r for r in range(7)])
+def test_walk_planes_build_kernel_every_remainder(cuda, nblk):
+    # symbols 0..7 (6 and 7 in no mask) over every record count mod 7
+    gen = torch.Generator(device=cuda).manual_seed(nblk)
+    syms = torch.randint(0, 8, (nblk * 32,), generator=gen, device=cuda,
+                         dtype=torch.uint8)
+    blocks = syms.view(nblk, 32)
+    rec = build_rec((blocks[:, :16] | (blocks[:, 16:] << 4)).reshape(-1),
+                    nblk)
+    before = kernels.WALK_PLANES_BUILD.launches
+    got = build_walk_planes(rec)
+    assert kernels.WALK_PLANES_BUILD.launches == before + 1
+    assert torch.equal(got, build_walk_planes_plain(rec))
 
 
 def test_rec_build_rejects_bad_inputs(cuda):
