@@ -54,16 +54,12 @@
 // half of every seventh), 186 MB at 100 M positions: 0.055 ms at 3.35 TB/s.
 // Taking each of a block's 32 symbol bytes out with a shift and comparing
 // it five times costs some 500 instructions a block, as long as the bytes
-// take.  So the masks are made by SWAR (129 SASS instructions a thread),
-// and the instructions hide under the bytes: a pair of symbol words
-// (positions 8p .. 8p+7, bytes 0..15) is folded into one word
-// q = lo | hi << 4, (q >> k) & 0x11111111 holds bit k of the eight
-// symbols at bits 8i and 8i+4, and one multiply by 0x01020408 gathers them
-// into the top byte in position order (the eight partial products fall on
-// distinct bits, so nothing carries).  Three byte permutes put the four
-// pairs' bytes into bit plane k; each character's mask is then an AND of
-// the four planes or their complements.  Symbol bytes are 0..15, as every
-// record table of the port holds them.  What bounds it now, measured on an
+// take.  So the masks are made by SWAR (113 SASS instructions a thread),
+// and the instructions hide under the bytes: the four bit planes of a
+// block's symbols come from symbol_plane (symbol_plane.cuh, shared with
+// decode.cu's builder: a multiply gathers one bit of eight symbols), and
+// each character's mask is an AND of the four planes or their
+// complements.  What bounds it now, measured on an
 // NVIDIA H100 80GB HBM3 at 700 W: 0.089 ms of device time at 100 M
 // positions, which is the whole 64-byte records (200 MB) and the planes
 // (71 MB) at the card's copy rate.  A read-only probe kernel
@@ -76,6 +72,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "symbol_plane.cuh"
 
 namespace {
 
@@ -147,17 +145,6 @@ walk_emit_kernel(const uint4* __restrict__ planes, const int* __restrict__ C,
   }
 }
 
-// Bit plane K of the block's 32 symbols, in position order: bit 8p + j of
-// the result is bit K of position 8p + j.
-template <int K>
-__device__ __forceinline__ uint32_t symbol_plane(const uint32_t q[4]) {
-  uint32_t t[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) t[p] = ((q[p] >> K) & 0x11111111u) * 0x01020408u;
-  return __byte_perm(__byte_perm(t[0], t[1], 0x0073),
-                     __byte_perm(t[2], t[3], 0x0073), 0x5410);
-}
-
 __global__ void __launch_bounds__(kThreads)
 walk_planes_build_kernel(const uint4* __restrict__ rec, int64_t nblk,
                          int64_t n_sb, uint32_t* __restrict__ planes) {
@@ -175,9 +162,8 @@ walk_planes_build_kernel(const uint4* __restrict__ rec, int64_t nblk,
     if (blk < nblk) {
       const uint4* row = rec + blk * 4;
       uint4 s0 = __ldg(row + 2), s1 = __ldg(row + 3);
-      // pair p: words 2p and 2p+1, positions 8p .. 8p+7
-      const uint32_t q[4] = {s0.x | (s0.y << 4), s0.z | (s0.w << 4),
-                             s1.x | (s1.y << 4), s1.z | (s1.w << 4)};
+      uint32_t q[4];
+      fold_symbol_words(s0, s1, q);
       const uint32_t p0 = symbol_plane<0>(q), p1 = symbol_plane<1>(q),
                      p2 = symbol_plane<2>(q), p3 = symbol_plane<3>(q);
       const uint32_t lo = ~p2 & ~p3, hi = p2 & ~p3;   // symbols 0..3, 4..7

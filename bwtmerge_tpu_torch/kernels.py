@@ -2,7 +2,8 @@
 
 Each source in `csrc/` is compiled by `nvcc` for sm_90a into its own
 shared library with a plain C interface, at first use, into `build/`
-(listed in .gitignore).  All sources compile in parallel, one `nvcc` each.
+(listed in .gitignore); a library is rebuilt when its source or any header
+in `csrc/` is newer.  All sources compile in parallel, one `nvcc` each.
 The libraries are loaded with ctypes; pointers and the stream travel as
 `c_void_p`.  Every C entry point returns `cudaGetLastError()` after its
 launch and a nonzero code raises here.
@@ -57,10 +58,16 @@ def _lib_path(source: str) -> str:
 
 
 def _stale(source: str) -> bool:
+    """True when the source's library is missing or older than the source
+    or than any header of `csrc/` (a header may be included by every
+    source)."""
     lib = _lib_path(source)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(
-                os.path.join(CSRC_DIR, source)))
+    if not os.path.exists(lib):
+        return True
+    deps = [source] + [f for f in os.listdir(CSRC_DIR)
+                       if f.endswith((".cuh", ".h"))]
+    return os.path.getmtime(lib) < max(
+        os.path.getmtime(os.path.join(CSRC_DIR, f)) for f in deps)
 
 
 _build_lock = threading.Lock()

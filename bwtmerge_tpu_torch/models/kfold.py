@@ -366,22 +366,28 @@ def _proc_chain_chunks(steps, k_total: int, piece_files, window: int):
     (models/kfold_stage.py): each windowed pass runs on its own
     core.  Stage k starts once step k-1's rank array is in its spill files,
     which the child reads and deletes; its A input is the previous stage's
-    stdout."""
+    stdout.  A stage killed before it has read its files (the fold failed
+    or was abandoned) leaves them; the parent removes them once the stage
+    is gone."""
     import subprocess
 
     def gen():
         from .kfold_stage import read_frames
+        from .spill import _SpillFile
 
         repo = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
         env = dict(os.environ)
         env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
         procs = []
+        handed = []
         prev = None
         try:
             for k in range(1, k_total):
                 steps.wait_spill(k - 1)
-                spill_args = [f"{p}:{n}" for p, n in steps.spill_files(k - 1)]
+                files = steps.spill_files(k - 1)
+                handed += files
+                spill_args = [f"{p}:{n}" for p, n in files]
                 cmd = [sys.executable, "-m",
                        "bwtmerge_tpu_torch.models.kfold_stage",
                        "--b-path", piece_files[k][0],
@@ -411,6 +417,8 @@ def _proc_chain_chunks(steps, k_total: int, piece_files, window: int):
                     proc.wait()
             if prev is not None and prev.stdout:
                 prev.stdout.close()
+            for path, n_runs in handed:
+                _SpillFile(path, n_runs).delete()
 
     return gen()
 

@@ -20,7 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    offsets 0 and 31; the full decode must also give back the generated
    reads.  The kernels that build K2's and K3's tables (walk_planes_build,
    decode_rows_build) are held against their plain versions on the same
-   record tables.  rec_build, the record table's build, is held against
+   record tables, decode_rows_build also on tables of symbols 0..6 at 1,
+   31, 32, 33, 255, 256, 257, 1023, 1025, 1026 and 2^22 + 5 blocks.
+   rec_build, the record table's build, is held against
    build_rec_plain at the medium A's size (26.7 M random positions) with a
    zero and a random base, and at 1, 255, 256, 257, 1023, 1024, 1025,
    2049 and 2^20 + 3 blocks, and timed beside torch.cumsum over the
@@ -96,12 +98,16 @@ Then bench.py's large scale and the record build at the layout's limit:
     to the --search trie merge; rec_build launched once a record table
     built in each run; phases, -v passes, index builds, Mbases/s, spill
     files.  Then the large A's table by rec_build and by build_rec_plain:
-    time and the peak of device memory above the nibbles;
+    time and the peak of device memory above the nibbles; the large B's
+    decode rows by decode_rows_build against its plain version, timed;
 13c. rec_build at 2^31 - 2 random positions (the largest index the int32
     layout takes), checked without the plain version's scan: row 0 is the
     base, neighbouring rows differ by the block counts and the packed
     words are the plain packing (torch ops, slab by slab), the last row
-    plus its block's counts is the base plus the text's bincount;
+    plus its block's counts is the base plus the text's bincount; then
+    decode_rows_build over that table, checked on 2^20 random rows and
+    the first and last 4,096 against the plain version run on those
+    rows' records, and timed;
 
 Then the multi-device paths, on meshes that repeat the one card:
 
@@ -131,8 +137,10 @@ Then the multi-device paths, on meshes that repeat the one card:
     started, leaves its tracing library loaded, and later launches pay for
     it);
 20. the table builders' profile: rec_build at the medium A's size, the
-    large A's and 2^31 - 2 positions, and walk_planes_build over 100 M
-    positions, each timed with CUDA events and then under torch.profiler
+    large A's and 2^31 - 2 positions, walk_planes_build over 100 M
+    positions, and decode_rows_build at K3's piece (421,957 blocks), the
+    large B's size (51 M positions) and 2^31 - 2 positions, each timed
+    with CUDA events and then under torch.profiler
     (each kernel's device time a call and its share); their sources
     compiled again with -Xptxas -v (registers, spills, shared memory) and
     read back with cuobjdump -sass (static instruction counts, popcounts,
@@ -792,7 +800,7 @@ def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
                                                      decode_creads,
                                                      decode_creads_device,
                                                      decode_creads_plain)
-    from bwtmerge_tpu_torch.ops.rank_torch import BLK, DeviceFMIndex
+    from bwtmerge_tpu_torch.ops.rank_torch import DeviceFMIndex
 
     runs, _, _ = read_bwt(path, "sga")
     idx = DeviceFMIndex.build(runs, runs.counts(6), device)
@@ -805,20 +813,19 @@ def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
     if not torch.equal(rows, rows_want):
         raise AssertionError(f"decode_rows_build differs from its plain "
                              f"version (max abs err {err})")
-    # its bound: the record table read once, the rows written once; a
-    # shift, a mask and an or per position and bit-plane
+    check_decode_rows_edges(device)
     kb = {"name": "decode_rows_build", "route": "cuda",
           "source": "bwtmerge_tpu_torch/csrc/decode.cu",
           "replaces": "bwtmerge_tpu/ops/walk_jax.py:272",
-          "max_abs_err": err,
+          "max_abs_err": err, "nblk": idx.rec.shape[0],
+          "edge_blocks": list(DECODE_EDGE_BLOCKS),
           "ms": time_ms(lambda: build_decode_rows(idx.rec), device),
           "plain_ms": time_ms(lambda: build_decode_rows_plain(idx.rec),
                               device, 5),
-          **bound(idx.rec.numel() * 4 + rows.numel() * 4,
-                  idx.rec.shape[0] * BLK * 3 * 3)}
+          **decode_rows_bound(idx.rec.shape[0])}
     log(f"decode_rows_build: {idx.size} positions, rows {list(rows.shape)}: "
-        f"equal, {kb['ms']:.4f} ms vs plain {kb['plain_ms']:.4f} ms, bound "
-        f"{kb['bound_ms']:.4f} ms")
+        f"equal, and at {list(DECODE_EDGE_BLOCKS)} blocks; {kb['ms']:.4f} "
+        f"ms vs plain {kb['plain_ms']:.4f} ms, bound {kb['bound_ms']:.4f} ms")
     err = 0
     for lane0, width in ((0, m), (0, 1000), (31, 1000), (32, 33),
                          (m // 2 - 31, 64), (m - 500, 500)):
@@ -867,6 +874,95 @@ def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
         f"{rec['bound_ms']:.4f} ms ({rec['bound_ms_record_table']:.4f} ms "
         f"with the record table)")
     return [rec, kb]
+
+
+# decode_rows_build at one block, around a warp's and a thread block's
+# blocks (32, 256; one a thread) and four thread blocks' (1024), and at
+# 2^22 + 5 blocks
+DECODE_EDGE_BLOCKS = (1, 31, 32, 33, 255, 256, 257, 1023, 1025, 1026,
+                      (1 << 22) + 5)
+DECODE_SAMPLE_ROWS = 1 << 20         # random rows checked at the limit
+DECODE_SAMPLE_ENDS = 4096            # and the first and last rows
+
+
+def decode_rows_bound(nblk: int) -> dict:
+    """decode_rows_build's bound: the record table read once (64 B a block)
+    and the rows written once (32 B); a shift, a mask and an or per
+    position and bit-plane."""
+    from bwtmerge_tpu_torch.ops.rank_torch import BLK
+
+    return bound(nblk * 96, nblk * BLK * 3 * 3)
+
+
+def symbol_records(nblk: int, device, seed: int):
+    """A record table of nblk blocks built on the card by rec_build over
+    random symbols 0..6 (the first seven positions hold 0..6, so every
+    table holds each)."""
+    import torch
+
+    from bwtmerge_tpu_torch.ops.rank_torch import BLK, build_rec
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    syms = torch.randint(0, 7, (nblk * BLK,), generator=gen, device=device,
+                         dtype=torch.uint8)
+    syms[:7] = torch.arange(7, device=device, dtype=torch.uint8)
+    blocks = syms.view(nblk, BLK)
+    return build_rec((blocks[:, :16] | (blocks[:, 16:] << 4)).reshape(-1),
+                     nblk)
+
+
+def check_decode_rows_edges(device) -> None:
+    """decode_rows_build against its plain version, exact, on record tables
+    of DECODE_EDGE_BLOCKS blocks."""
+    import torch
+
+    from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
+                                                     build_decode_rows_plain)
+
+    for k, nblk in enumerate(DECODE_EDGE_BLOCKS):
+        rec = symbol_records(nblk, device, 40 + k)
+        got = build_decode_rows(rec)
+        want = build_decode_rows_plain(rec)
+        torch.cuda.synchronize(device)
+        if not torch.equal(got, want):
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            raise AssertionError(f"decode_rows_build differs from its plain "
+                                 f"version at {nblk} blocks (max abs err "
+                                 f"{err})")
+
+
+def decode_rows_sampled(device, rec, seed: int) -> dict:
+    """decode_rows_build over a whole record table too large for the plain
+    version, checked on DECODE_SAMPLE_ROWS random rows and the first and
+    last DECODE_SAMPLE_ENDS, against the plain version run on those rows'
+    records (a row depends on its own record alone).  Time and bound."""
+    import torch
+
+    from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
+                                                     build_decode_rows_plain)
+
+    nblk = rec.shape[0]
+    rows = build_decode_rows(rec)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ends = torch.arange(min(DECODE_SAMPLE_ENDS, nblk), device=device)
+    pick = torch.cat([ends, nblk - 1 - ends,
+                      torch.randint(0, nblk, (DECODE_SAMPLE_ROWS,),
+                                    generator=gen, device=device)])
+    got, want = rows[pick], build_decode_rows_plain(rec[pick])
+    torch.cuda.synchronize(device)
+    if not torch.equal(got, want):
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        raise AssertionError(f"decode_rows_build differs from its plain "
+                             f"version on the sampled rows of {nblk} "
+                             f"blocks (max abs err {err})")
+    del rows
+    out = {"nblk": nblk, "rows_checked": int(pick.numel()),
+           "ms": time_ms(lambda: build_decode_rows(rec), device, 5),
+           **decode_rows_bound(nblk)}
+    log(f"decode_rows_build, {nblk} blocks, sampled rows equal: "
+        f"{json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return out
 
 
 # rec_build at one block, the edges of the first design's tile (256) and of
@@ -995,13 +1091,18 @@ def rec_build_near_limit(device, n_pos: int = REC_LIMIT_POSITIONS,
               "table_bytes": rec.numel() * 4, "nibble_bytes": nib.numel(),
               **rec_bound(nblk)}
     log(f"rec_build near the int32 limit: {json.dumps(result)}")
-    del rec, nib
+    del nib
+    torch.cuda.empty_cache()
+    result["decode_rows_build"] = decode_rows_sampled(device, rec, seed)
+    del rec
     torch.cuda.empty_cache()
     return result
 
 
-BUILDER_SOURCES = ("rec_build.cu", "walk.cu")
+BUILDER_SOURCES = ("rec_build.cu", "walk.cu", "decode.cu")
 LARGE_A_POSITIONS = LARGE_A_READS * (READ_LEN + 1)
+LARGE_B_POSITIONS = 1_000_000 * (READ_LEN + 1)   # bench.py's large B
+DECODE_MEDIUM_BLOCKS = 421_957       # K3's piece: 10^6 reads, 13.5 M positions
 
 
 def _kernel_name(name: str) -> str:
@@ -1021,7 +1122,7 @@ def _kernel_name(name: str) -> str:
 
 
 def builder_build_facts() -> dict:
-    """The two builders' sources compiled to cubins with -Xptxas -v (one
+    """The builders' sources compiled to cubins with -Xptxas -v (one
     nvcc each, together): each kernel's registers, spill bytes and shared
     memory as ptxas states them, its ptxas lines, and from cuobjdump -sass
     its static count of SASS instructions (NOPs left out), of them POPC and
@@ -1196,10 +1297,12 @@ def _device_us_by_kernel(prof) -> dict:
 
 
 def builder_profile(device, calls: int = 20) -> dict:
-    """The two table builders under torch.profiler: rec_build at the medium
-    A's size, the large A's and 2^31 - 2 positions (random symbols), and
-    walk_planes_build over 100 M positions; each kernel's device
-    microseconds a call and its share of the call's device time.  Also
+    """The three table builders under torch.profiler: rec_build at the
+    medium A's size, the large A's and 2^31 - 2 positions (random symbols),
+    walk_planes_build over 100 M positions, and decode_rows_build at K3's
+    piece (421,957 blocks), the large B's size and 2^31 - 2 positions; each
+    kernel's device microseconds a call and its share of the call's device
+    time.  Also
     CUDA-event milliseconds a call of each, taken before the profiler
     starts, and the sources' ptxas and SASS figures, with each builder's
     instructions a record block (the static SASS count of its kernel over
@@ -1207,7 +1310,7 @@ def builder_profile(device, calls: int = 20) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bwtmerge_tpu_torch.ops import rank_torch
+    from bwtmerge_tpu_torch.ops import decode_torch, rank_torch
     from bwtmerge_tpu_torch.ops.walk_torch import build_walk_planes
 
     facts = builder_build_facts()
@@ -1221,15 +1324,27 @@ def builder_profile(device, calls: int = 20) -> dict:
         "rec_build_kernel", rank_torch.REC_TILE // rank_torch.REC_THREADS)
     result["walk_planes_build_instructions_a_block"] = counted(
         "walk_planes_build_kernel", 1)
+    result["decode_rows_build_instructions_a_block"] = counted(
+        "decode_rows_build_kernel", 1)
     cases = [("rec_build_medium", MEDIUM[0] * (READ_LEN + 1)),
              ("rec_build_large_a", LARGE_A_POSITIONS),
              ("rec_build_limit", REC_LIMIT_POSITIONS),
-             ("walk_planes_build_100m", K1_POSITIONS)]
+             ("walk_planes_build_100m", K1_POSITIONS),
+             ("decode_rows_build_medium", DECODE_MEDIUM_BLOCKS * 32 - 1),
+             ("decode_rows_build_large_b", LARGE_B_POSITIONS),
+             ("decode_rows_build_limit", REC_LIMIT_POSITIONS)]
     for key, n_pos in cases:
         if key.startswith("rec_build"):
             _, nib, nblk = random_nibbles(n_pos, device, 29)
             fn = (lambda nib=nib, nblk=nblk: rank_torch.build_rec(nib, nblk))
             bnd = rec_bound(nblk)
+        elif key.startswith("decode_rows_build"):
+            _, nib, nblk = random_nibbles(n_pos, device, 29)
+            rec = rank_torch.build_rec(nib, nblk)
+            del nib
+            fn = (lambda rec=rec: decode_torch.build_decode_rows(rec))
+            bnd = decode_rows_bound(nblk)
+            del rec
         else:
             idx = random_index(n_pos, device, 29)
             nblk = idx.rec.shape[0]
@@ -2191,7 +2306,38 @@ def large_path(device) -> dict:
     result["rec_build_large_a"] = rec_build_memory(device, a_path)
     log(f"rec_build and the plain build, large A: "
         f"{json.dumps(result['rec_build_large_a'])}")
+    result["decode_rows_large_b"] = decode_rows_large_b(device, b_path)
     return result
+
+
+def decode_rows_large_b(device, path: str) -> dict:
+    """decode_rows_build over the large B's record table (a real BWT of
+    1,000,000 reads) against its plain version, exact; both timed."""
+    import torch
+
+    from bwtmerge_tpu_torch.formats import read_bwt
+    from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
+                                                     build_decode_rows_plain)
+    from bwtmerge_tpu_torch.ops.rank_torch import DeviceFMIndex
+
+    runs, _, _ = read_bwt(path, "sga")
+    idx = DeviceFMIndex.build(runs, runs.counts(6), device)
+    got = build_decode_rows(idx.rec)
+    want = build_decode_rows_plain(idx.rec)
+    torch.cuda.synchronize(device)
+    if not torch.equal(got, want):
+        raise AssertionError("decode_rows_build differs from its plain "
+                             "version on the large B")
+    nblk = idx.rec.shape[0]
+    out = {"positions": idx.size, "nblk": nblk,
+           "ms": time_ms(lambda: build_decode_rows(idx.rec), device),
+           "plain_ms": time_ms(lambda: build_decode_rows_plain(idx.rec),
+                               device, 3),
+           **decode_rows_bound(nblk)}
+    log(f"decode_rows_build, large B: equal; {json.dumps(out)}")
+    del got, want, idx
+    torch.cuda.empty_cache()
+    return out
 
 
 def p5_spill(device, fixtures: Fixtures, run_buffer: str = "1") -> dict:
@@ -2547,9 +2693,11 @@ def main() -> int:
         cli_profile(device, fixtures)
         profiled = builder_profile(device)
     for rec in records:
-        if rec["name"] in ("rec_build", "walk_planes_build"):
+        if rec["name"] in ("rec_build", "walk_planes_build",
+                           "decode_rows_build"):
             key = rec["name"]
-            prefix = "rec_" if key == "rec_build" else "walk_planes"
+            prefix = {"rec_build": "rec_", "walk_planes_build": "walk_planes",
+                      "decode_rows_build": "decode_rows"}[key]
             rec["instructions_a_block"] = profiled[
                 f"{key}_instructions_a_block"]
             rec["sass"] = {k: {f: v for f, v in fact.items() if f != "ptxas"}

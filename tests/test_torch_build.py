@@ -20,6 +20,9 @@ from bwtmerge_tpu_torch.cli import bwt_build as port_cli  # noqa: E402
 from bwtmerge_tpu_torch.models import build as p_build  # noqa: E402
 from bwtmerge_tpu_torch.models.fmi import FMI  # noqa: E402
 from bwtmerge_tpu_torch.ops import sa_torch  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 COMP2CHAR = np.frombuffer(b"$ACGTN", np.uint8)
 

@@ -1,21 +1,32 @@
 """The table builders' bit arithmetic, rehearsed on the CPU.
 
-csrc/rec_build.cu (rec_build) and the table builder of csrc/walk.cu
-(walk_planes_build) run only on a card, and no compiler here can check
-them.  Their arithmetic is transcribed step for step in numpy uint32 (the
-bit planes, the AND combinations, the multiply that gathers a bit plane
-in position order, the byte permutes, the two-lanes-a-word scans, the
-decoupled look-back and the staging swizzle) and held against the plain
-versions: rank_torch.block_counts and build_rec_plain,
-walk_torch.build_walk_planes_plain, and the JAX package's mask shifts
-(walk_jax._SHIFTS).
+csrc/rec_build.cu (rec_build) and the table builders of csrc/walk.cu
+(walk_planes_build) and csrc/decode.cu (decode_rows_build) run only on a
+card, and no compiler here can check them.  Their arithmetic is
+transcribed step for step in numpy uint32 (the bit planes, the AND
+combinations, the word-pair fold and the multiply that gathers a bit plane
+in position order (csrc/symbol_plane.cuh), the byte permutes, the
+two-lanes-a-word scans, the decoupled look-back, the staging swizzle and
+the decode rows' assembly) and held against the plain versions:
+rank_torch.block_counts and build_rec_plain,
+walk_torch.build_walk_planes_plain, decode_torch.build_decode_rows_plain,
+and the JAX package's mask shifts (walk_jax._SHIFTS) and record table
+(rank_jax._build_rec_device).  kernels._stale, which decides what `nvcc`
+rebuilds, is tested here too.
 """
 
+import os
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from bwtmerge_tpu.ops.rank_jax import _build_rec_device
 from bwtmerge_tpu.ops.walk_jax import _SHIFTS
+from bwtmerge_tpu_torch import kernels
+from bwtmerge_tpu_torch.ops.decode_torch import (ROW_WORDS,
+                                                 build_decode_rows_plain)
 from bwtmerge_tpu_torch.ops.rank_torch import (BLK, LANES, NIB_FILL, REC,
                                                REC_THREADS, REC_TILE,
                                                block_counts, build_rec_plain)
@@ -270,18 +281,36 @@ def byte_perm(x: np.ndarray, y: np.ndarray, s: int) -> np.ndarray:
                ).astype(U32)
 
 
+def fold_symbol_words(words: np.ndarray) -> np.ndarray:
+    """symbol_plane.cuh fold_symbol_words: words uint32[..., 8] packed
+    symbols -> uint32[..., 4], q[p] = word 2p | word 2p+1 << 4, written as
+    a multiply-add (symbol bytes are 0..15, so the halves never overlap)."""
+    return words[..., 0::2] + words[..., 1::2] * U32(16)
+
+
 def symbol_plane(q: np.ndarray, k: int) -> np.ndarray:
-    """walk.cu symbol_plane<K>: q uint32[..., 4] folded word pairs."""
-    t = [((q[..., p] >> U32(k)) & U32(0x11111111)) * U32(0x01020408)
+    """symbol_plane.cuh symbol_plane<K>: q uint32[..., 4] folded word
+    pairs."""
+    t = [(q[..., p] & U32(0x11111111 << k)) * U32(0x01020408 >> k)
          for p in range(4)]
     return byte_perm(byte_perm(t[0], t[1], 0x0073),
                      byte_perm(t[2], t[3], 0x0073), 0x5410)
 
 
+def test_symbol_plane_multiply_needs_no_shift():
+    # (q & (m << k)) * (M >> k) is ((q >> k) & m) * M modulo 2^32: the
+    # header's form saves a shift a word pair
+    q = u32(np.random.default_rng(2).integers(0, 2**32, size=4096))
+    for k in range(4):
+        np.testing.assert_array_equal(
+            (q & U32(0x11111111 << k)) * U32(0x01020408 >> k),
+            ((q >> U32(k)) & U32(0x11111111)) * U32(0x01020408))
+
+
 def block_masks(words: np.ndarray) -> np.ndarray:
     """walk.cu's masks of characters 1..5: words uint32[N, 8] packed
     symbols -> uint32[N, NC]."""
-    q = words[:, 0::2] | (words[:, 1::2] << U32(4))
+    q = fold_symbol_words(words)
     p0, p1, p2, p3 = (symbol_plane(q, k) for k in range(4))
     lo, hi = ~p2 & ~p3, p2 & ~p3
     return np.stack([p0 & ~p1 & lo, ~p0 & p1 & lo, p0 & p1 & lo,
@@ -335,3 +364,91 @@ def test_walk_planes_transcribed_matches_plain(nblk):
     rec = _records(syms, rng)
     want = build_walk_planes_plain(torch.from_numpy(rec)).numpy()
     np.testing.assert_array_equal(walk_planes_transcribed(rec), want)
+
+
+# ---- decode_rows_build ------------------------------------------------------
+
+def decode_row(records: np.ndarray) -> np.ndarray:
+    """decode.cu decode_row: records uint32[N, 16] -> rows uint32[N, 8]."""
+    q = fold_symbol_words(records[:, LANES:])
+    planes = [symbol_plane(q, k) for k in range(ROW_WORDS - NC)]
+    return np.concatenate([records[:, 1:1 + NC], np.stack(planes, axis=1)],
+                          axis=1)
+
+
+def decode_rows_transcribed(rec: np.ndarray) -> np.ndarray:
+    """decode_rows_build_kernel: thread b of the grid builds block b's row
+    from its record alone."""
+    return decode_row(rec.view(U32)).view(np.int32)
+
+
+@pytest.mark.parametrize("nblk", [1, 2, 3, 31, 32, 33, 255, 256, 257, 1023,
+                                  1025, 5000])
+def test_decode_rows_transcribed_matches_plain(nblk):
+    # around a warp's and a thread block's blocks (one a thread); symbols
+    # 0..6 in every table
+    rng = np.random.default_rng(nblk)
+    syms = rng.integers(0, 7, size=nblk * BLK)
+    syms[:7] = np.arange(7)
+    rec = _records(syms, rng)
+    want = build_decode_rows_plain(torch.from_numpy(rec)).numpy()
+    np.testing.assert_array_equal(decode_rows_transcribed(rec), want)
+
+
+@pytest.mark.parametrize("symbols", [7, 16])
+def test_decode_rows_every_symbol_at_every_position(symbols):
+    # each value at each of a block's 32 positions, the rest random: the
+    # fold's halves and the gathered bits land where the plain version has
+    # them for every nibble, not only the symbols 0..6 a BWT holds
+    rng = np.random.default_rng(symbols)
+    syms = rng.integers(0, symbols, size=(symbols, BLK, BLK))
+    for val in range(symbols):
+        syms[val, np.arange(BLK), np.arange(BLK)] = val
+    rec = _records(syms.reshape(-1), rng)
+    want = build_decode_rows_plain(torch.from_numpy(rec)).numpy()
+    np.testing.assert_array_equal(decode_rows_transcribed(rec), want)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_decode_rows_of_the_jax_record_table(seed):
+    # the JAX package's own record table of seeded nibbles (symbols 0..6):
+    # the rows' occ words are its occ lanes 1..5, and bit j of plane k is
+    # bit k of the symbol at position j, read from the nibbles themselves
+    rng = np.random.default_rng(seed)
+    nblk = int(rng.integers(1, 3000))
+    syms = rng.integers(0, 7, size=(nblk, BLK)).astype(np.uint8)
+    nib = (syms[:, :16] | (syms[:, 16:] << 4)).reshape(-1)
+    rec = np.asarray(_build_rec_device(jnp.asarray(nib)))
+    rows = decode_rows_transcribed(rec).view(U32)
+    np.testing.assert_array_equal(rows[:, :NC], rec[:, 1:1 + NC].view(U32))
+    for k in range(ROW_WORDS - NC):
+        bits = (rows[:, NC + k, None] >> np.arange(BLK, dtype=U32)) & U32(1)
+        np.testing.assert_array_equal(bits, (syms >> k) & 1)
+
+
+# ---- kernels._stale ---------------------------------------------------------
+
+def test_a_newer_header_makes_every_library_stale(tmp_path, monkeypatch):
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(build))
+    for name in ("a.cu", "b.cu", "shared.cuh", "notes.txt"):
+        (csrc / name).write_text("//\n")
+    for name in ("a.cu", "b.cu", "shared.cuh", "notes.txt"):
+        os.utime(csrc / name, (1000, 1000))
+    assert kernels._stale("a.cu")                     # no library yet
+    for src in ("a.cu", "b.cu"):
+        lib = kernels._lib_path(src)
+        open(lib, "w").close()
+        os.utime(lib, (2000, 2000))
+    assert not kernels._stale("a.cu") and not kernels._stale("b.cu")
+    os.utime(csrc / "notes.txt", (3000, 3000))        # not a header
+    assert not kernels._stale("a.cu")
+    os.utime(csrc / "shared.cuh", (3000, 3000))
+    assert kernels._stale("a.cu") and kernels._stale("b.cu")
+    os.utime(kernels._lib_path("a.cu"), (4000, 4000))
+    assert not kernels._stale("a.cu") and kernels._stale("b.cu")
+    os.utime(csrc / "a.cu", (5000, 5000))             # its own source
+    assert kernels._stale("a.cu")

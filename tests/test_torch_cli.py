@@ -23,6 +23,9 @@ from bwtmerge_tpu.models import oracle  # noqa: E402
 from bwtmerge_tpu.utils.alphabet import Alphabet  # noqa: E402
 from bwtmerge_tpu_torch.cli import bwt_merge as port_cli  # noqa: E402
 from test_torch_kfold import within  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 
 def _write(path, seqs, sidecar_reads=None):

@@ -19,6 +19,9 @@ from bwtmerge_tpu.ops.rank_jax import DeviceFMIndex as JaxIndex  # noqa: E402
 from bwtmerge_tpu_torch.ops import decode_torch  # noqa: E402
 from bwtmerge_tpu_torch.ops.rank_torch import DeviceFMIndex  # noqa: E402
 from test_torch_kfold import within  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 
 def _reads(rng, n, max_len, long_reads=()):

@@ -49,6 +49,9 @@ import bwtmerge_tpu_torch.utils.hashing as p_hash
 import bwtmerge_tpu_torch.utils.metrics as p_metrics
 import bwtmerge_tpu_torch.utils.pipeline as p_pipeline
 import bwtmerge_tpu_torch.utils.ranges as p_ranges
+from jax_native_once import build_jax_native_once
+
+build_jax_native_once()
 
 FORMATS = sorted(p_formats.FORMATS)
 PKG = {"jax": dict(formats=j_formats, runs=j_runs, alpha=j_alpha,

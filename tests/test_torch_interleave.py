@@ -28,6 +28,9 @@ from bwtmerge_tpu_torch.ops import search_np  # noqa: E402
 from bwtmerge_tpu_torch.parallel.distributed import (  # noqa: E402
     coalesce_run_chunks)
 from bwtmerge_tpu_torch.utils.alphabet import Alphabet  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 
 def _pair(seed, n_a=40, n_b=35, lo=10, hi=90):

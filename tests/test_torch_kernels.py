@@ -22,7 +22,7 @@ from bwtmerge_tpu_torch.ops.walk_torch import (SUPER,
                                                build_walk_planes,
                                                build_walk_planes_plain,
                                                walk_emit, walk_emit_plain)
-from chip_smoke import random_index
+from chip_smoke import DECODE_EDGE_BLOCKS, random_index, symbol_records
 
 SENT = 2**31 - 1
 
@@ -115,6 +115,19 @@ def test_decode_rows_build_kernel_matches_plain(cuda):
         got = build_decode_rows(idx.rec)
         assert kernels.DECODE_ROWS_BUILD.launches == before + 1
         assert torch.equal(got, build_decode_rows_plain(idx.rec))
+
+
+@pytest.mark.parametrize("nblk", DECODE_EDGE_BLOCKS)
+def test_decode_rows_build_kernel_at_the_edges(cuda, nblk):
+    # one block, a warp's and a thread block's threads and rows (4 a
+    # thread) and their neighbours, every count modulo 4, 2^22 + 5 blocks;
+    # symbols 0..6
+    rec = symbol_records(nblk, cuda, nblk)
+    before = kernels.DECODE_ROWS_BUILD.launches
+    got = build_decode_rows(rec)
+    assert kernels.DECODE_ROWS_BUILD.launches == before + 1
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(got, build_decode_rows_plain(rec))
 
 
 def _card_nibbles(nblk, device, seed):
@@ -309,6 +322,21 @@ def test_decode_kernel_matches_plain(cuda, lane0, width):
     assert torch.equal(got, want)
     assert int(n_got) == int(n_want)
     assert int(n_got) == (1 if lane0 <= 1500 < lane0 + width else 0)
+
+
+@pytest.mark.parametrize("n_reads", [40, 1000, 3000])
+def test_decode_over_kernel_rows_matches_plain(cuda, n_reads):
+    # K3 over rows that decode_rows_build made, exact against the plain
+    # decode, which reads the record table and not the rows
+    idx, _ = _real_index(cuda, n_reads=n_reads, seed=n_reads)
+    rows = build_decode_rows(idx.rec)
+    assert torch.equal(rows, build_decode_rows_plain(idx.rec))
+    got = torch.zeros((64, n_reads), dtype=torch.int8, device=cuda)
+    want = torch.zeros_like(got)
+    n_got = decode_creads_device(idx, got, 0, rows)
+    n_want = decode_creads_plain(idx, want, 0)
+    assert torch.equal(got, want)
+    assert int(n_got) == int(n_want) == 1     # the read of 150 characters
 
 
 def test_decode_kernel_recovers_the_reads(cuda):

@@ -36,6 +36,9 @@ from bwtmerge_tpu_torch.models import kfold as port_kfold  # noqa: E402
 from bwtmerge_tpu_torch.ops import kfold_torch  # noqa: E402
 from bwtmerge_tpu_torch.ops.rank_torch import (DeviceFMIndex,  # noqa: E402
                                                pack_nibbles_chunked)
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 SENT = 2**31 - 1
 
@@ -353,6 +356,27 @@ def test_failing_loader_neither_hangs_nor_writes(tmp_path, chain):
                port.MergeConfig(device="cpu", temp_dir=str(tmp_path)),
                chain=chain)
     assert not out.exists()
+    assert _leftovers(tmp_path) == []
+
+
+def test_proc_chain_removes_the_spill_files_of_a_killed_stage(tmp_path):
+    # stage 1 is killed before it has read step 0's spill files, because
+    # step 1 failed: the files it was handed must not outlive it
+    spill = tmp_path / ".bwtmerge_torch_0_0"
+    spill.write_bytes(bytes(16))
+
+    class Steps:
+        def wait_spill(self, k):
+            if k == 1:
+                raise RuntimeError("step 1 failed")
+
+        def spill_files(self, k):
+            return [(str(spill), 1)]
+
+    pieces = [(str(tmp_path / f"p{k}.sga"), "sga") for k in range(3)]
+    chunks = port_kfold._proc_chain_chunks(Steps(), 3, pieces, 1 << 16)
+    with pytest.raises(RuntimeError, match="step 1 failed"):
+        next(chunks)
     assert _leftovers(tmp_path) == []
 
 

@@ -18,6 +18,9 @@ from bwtmerge_tpu.models import fmi as jax_fmi  # noqa: E402
 from bwtmerge_tpu.models import merge as jax_merge  # noqa: E402
 from bwtmerge_tpu.models import oracle  # noqa: E402
 from bwtmerge_tpu.utils.alphabet import Alphabet  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 
 def _write(tmp_path, name, seqs, sidecar):

@@ -30,6 +30,9 @@ from bwtmerge_tpu_torch import kernels  # noqa: E402
 from bwtmerge_tpu_torch.models.fmi import FMI  # noqa: E402
 from bwtmerge_tpu_torch.ops import rank_sharded  # noqa: E402
 from bwtmerge_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 SIZES = [1, 2, 4, 8]
 

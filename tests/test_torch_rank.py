@@ -19,6 +19,9 @@ from bwtmerge_tpu.utils.alphabet import Alphabet  # noqa: E402
 from bwtmerge_tpu_torch import kernels  # noqa: E402
 from bwtmerge_tpu_torch.convert import index_from_arrays  # noqa: E402
 from bwtmerge_tpu_torch.ops import rank_streamed, rank_torch  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 SENT = 2**31 - 1
 

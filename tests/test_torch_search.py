@@ -24,6 +24,9 @@ from bwtmerge_tpu_torch.formats.sidecar import (sidecar_path,  # noqa: E402
                                                 write_sidecar_reads)
 from bwtmerge_tpu_torch.ops import search_torch  # noqa: E402
 from bwtmerge_tpu_torch.utils.ranges import get_bounds  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 
 def _reads(kind, seed):

@@ -19,6 +19,9 @@ from bwtmerge_tpu.models.build import rlo_order  # noqa: E402
 from bwtmerge_tpu.parallel import sort_distributed as jsd  # noqa: E402
 from bwtmerge_tpu.parallel.mesh import make_mesh  # noqa: E402
 from bwtmerge_tpu_torch.parallel import sort_distributed as psd  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 SIZES = [1, 2, 4, 8]
 

@@ -20,6 +20,9 @@ from bwtmerge_tpu.ops.search_np import build_rank_array  # noqa: E402
 from bwtmerge_tpu_torch.ops import walk_torch  # noqa: E402
 from bwtmerge_tpu_torch.ops.ra_stream import blocked_walk  # noqa: E402
 from bwtmerge_tpu_torch.ops.rank_torch import DeviceFMIndex  # noqa: E402
+from jax_native_once import build_jax_native_once  # noqa: E402
+
+build_jax_native_once()
 
 SENT = 2**31 - 1
 
