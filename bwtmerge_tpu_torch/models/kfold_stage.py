@@ -78,19 +78,35 @@ def read_frames(inp):
         yield syms, lens
 
 
+SPILL_CHUNK_RUNS = 4 * 1024 * 1024   # runs a spill file's read takes
+
+
 def spill_stream(spill_files):
     """Ascending (values, counts) chunks from drained spill files
-    [(path, n_runs)] — consecutive sorted ranges, streamed in order."""
-    from .spill import _SpillFile
+    [(path, n_runs)], each sorted-unique.  Their ranges may overlap (a step
+    of several lane blocks drains blocks that each span the whole range),
+    so several files are merged, duplicate values summed, as
+    RankArraySpill.stream merges them; one file is streamed as it is.  Each
+    file is deleted once read."""
+    from .spill import _SpillFile, merge_ra_chunk_streams
 
-    for path, n_runs in spill_files:
-        f = _SpillFile(path, int(n_runs))
-        while not f.done():
-            f.refill(4 * 1024 * 1024)
-            v, c = f.take_until(np.iinfo(np.int64).max)
-            if v.size:
-                yield v, c
-        f.delete()
+    def file_chunks(f):
+        try:
+            while not f.done():
+                f.refill(SPILL_CHUNK_RUNS)
+                v, c = f.take_until(np.iinfo(np.int64).max)
+                if v.size:
+                    yield v, c
+        finally:
+            f.delete()
+
+    streams = [file_chunks(_SpillFile(path, int(n)))
+               for path, n in spill_files]
+    if len(streams) == 1:
+        yield from streams[0]
+    else:
+        yield from merge_ra_chunk_streams(streams,
+                                          chunk_runs=SPILL_CHUNK_RUNS)
 
 
 def main(argv) -> int:

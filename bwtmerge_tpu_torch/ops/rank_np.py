@@ -105,29 +105,71 @@ class SparseRankIndex:
     """
 
     syms: np.ndarray          # uint8[R] (view of the source runs)
-    lens: np.ndarray          # int64[R]
+    lens: np.ndarray          # int64[R], or uint32[R] from from_chunks
     blk_starts: np.ndarray    # int64[NB+1] text position at run block*stride
     blk_occ: np.ndarray       # int64[NB+1, sigma] occ at those runs
     stride: int
 
+    SLAB_RUNS = 1 << 24       # runs summed at a time (a multiple of stride)
+
     @classmethod
     def build(cls, runs: RunArrays, sigma: int = SIGMA,
               stride: int = 1 << 12) -> "SparseRankIndex":
-        syms = np.asarray(runs.syms)
-        lens = np.asarray(runs.lens, dtype=np.int64)
+        return cls.from_arrays(np.asarray(runs.syms),
+                               np.asarray(runs.lens, dtype=np.int64),
+                               sigma, stride)
+
+    @classmethod
+    def from_arrays(cls, syms: np.ndarray, lens: np.ndarray,
+                    sigma: int = SIGMA,
+                    stride: int = 1 << 12) -> "SparseRankIndex":
+        """The index over run arrays, kept as given; the sampled sums are
+        taken slab by slab, so no temporary spans all the runs."""
         r = syms.size
-        idx = np.arange(0, r, stride, dtype=np.int64) if r else np.zeros(1, np.int64)
-        nb = idx.size
+        nb = max(1, -(-r // stride))
         blk_starts = np.zeros(nb + 1, np.int64)
         blk_occ = np.zeros((nb + 1, sigma), np.int64)
-        if r:
-            sums = np.add.reduceat(lens, idx)
-            np.cumsum(sums, out=blk_starts[1:])
+        slab = max(stride, cls.SLAB_RUNS // stride * stride)
+        for s0 in range(0, r, slab):
+            s1 = min(s0 + slab, r)
+            cuts = np.arange(0, s1 - s0, stride)
+            b0 = s0 // stride + 1
+            ls = lens[s0:s1].astype(np.int64)
+            blk_starts[b0:b0 + cuts.size] = np.add.reduceat(ls, cuts)
+            ss = syms[s0:s1]
             for c in range(sigma):
-                contrib = np.where(syms == c, lens, 0)
-                np.cumsum(np.add.reduceat(contrib, idx), out=blk_occ[1:, c])
+                blk_occ[b0:b0 + cuts.size, c] = np.add.reduceat(
+                    np.where(ss == c, ls, 0), cuts)
+        np.cumsum(blk_starts, out=blk_starts)
+        np.cumsum(blk_occ, axis=0, out=blk_occ)
         return cls(syms=syms, lens=lens, blk_starts=blk_starts,
                    blk_occ=blk_occ, stride=stride)
+
+    @classmethod
+    def from_chunks(cls, chunks, sigma: int = SIGMA,
+                    stride: int = 1 << 12) -> "SparseRankIndex":
+        """The index over a stream of (syms, lens) run chunks, its run
+        lengths kept as uint32 (5 B a run, where RunArrays take 9) and each
+        chunk released as it is copied into place: for files whose run
+        arrays would not fit the host's memory."""
+        parts = []
+        for syms, lens in chunks:
+            lens = np.asarray(lens)
+            if lens.size and int(lens.max()) > np.iinfo(np.uint32).max:
+                raise ValueError("a run of 2^32 or more positions")
+            parts.append((np.array(syms, np.uint8),
+                          lens.astype(np.uint32)))
+        r = sum(p[0].size for p in parts)
+        syms = np.empty(r, np.uint8)
+        lens = np.empty(r, np.uint32)
+        pos = 0
+        parts.reverse()
+        while parts:
+            s, ln = parts.pop()
+            syms[pos:pos + s.size] = s
+            lens[pos:pos + s.size] = ln
+            pos += s.size
+        return cls.from_arrays(syms, lens, sigma, stride)
 
     @property
     def size(self) -> int:
@@ -143,14 +185,14 @@ class SparseRankIndex:
             b = min(max(b, 0), self.blk_starts.size - 2)
             lo = b * self.stride
             hi = min(lo + self.stride, self.syms.size)
-            local = np.cumsum(self.lens[lo:hi])
+            blk = self.lens[lo:hi].astype(np.int64)
+            local = np.cumsum(blk)
             off = pos - int(self.blk_starts[b])
             k = int(np.searchsorted(local, off, side="right"))
             k = min(k, hi - lo - 1)
             s = int(self.syms[lo + k])
             run_start = int(local[k - 1]) if k else 0
-            in_block = int(np.sum(
-                self.lens[lo:lo + k][self.syms[lo:lo + k] == s]))
+            in_block = int(np.sum(blk[:k][self.syms[lo:lo + k] == s]))
             rnk[q] = int(self.blk_occ[b, s]) + in_block + (off - run_start)
             sym[q] = s
         return rnk, sym
@@ -171,12 +213,13 @@ class SparseRankIndex:
             b = min(max(b, 0), self.blk_starts.size - 2)
             lo = b * self.stride
             hi = min(lo + self.stride, self.syms.size)
-            local = np.cumsum(self.lens[lo:hi])
+            blk = self.lens[lo:hi].astype(np.int64)
+            local = np.cumsum(blk)
             off = pos - int(self.blk_starts[b])
             k = int(np.searchsorted(local, off, side="right"))
             k = min(k, hi - lo - 1)
             mask = self.syms[lo:lo + k] == cq
-            in_block = int(np.sum(self.lens[lo:lo + k][mask]))
+            in_block = int(np.sum(blk[:k][mask]))
             if k < hi - lo and int(self.syms[lo + k]) == cq:
                 run_start = int(local[k - 1]) if k else 0
                 in_block += max(0, off - run_start)

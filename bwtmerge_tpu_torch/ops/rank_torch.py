@@ -39,6 +39,7 @@ BLK = 32         # positions per block
 REC = 16         # int32 words per record: 8 occ + 8 packed-symbol words
 NIB_FILL = SIGMA | (SIGMA << 4)  # pad byte: no query lane counts SIGMA
 SENT = 2**31 - 1
+MAX_SIZE = SENT - 1   # the largest index the layout takes: SENT is no rank
 STREAMED_MIN_BATCH = 1 << 14     # batch_count's switch to the streamed search
 REC_TILE = 1024  # record blocks a tile of csrc/rec_build.cu (its kTile)
 REC_THREADS = 256    # threads a tile (its kThreads): 4 blocks a thread
@@ -261,7 +262,7 @@ class DeviceFMIndex:
         (pack_nibbles_chunked): the k-way fold's piece upload, which never
         materializes run arrays.  Same record table as `build`."""
         dev = resolve_device(device)
-        if size >= 2**31 - 1:
+        if size > MAX_SIZE:
             raise ValueError(
                 f"BWT shard of {size} positions exceeds int32 device layout")
         nblk = size // BLK + 1
@@ -282,7 +283,7 @@ class DeviceFMIndex:
 
         dev = resolve_device(device)
         size = runs.size()
-        if size >= 2**31 - 1:
+        if size > MAX_SIZE:
             # strictly below int32-max: the walk reserves 2^31-1 as its
             # dead-lane sentinel, so a rank equal to it must not exist
             raise ValueError(

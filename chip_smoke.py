@@ -108,6 +108,23 @@ Then bench.py's large scale and the record build at the layout's limit:
     decode_rows_build over that table, checked on 2^20 random rows and
     the first and last 4,096 against the plain version run on those
     rows' records, and timed;
+13d. the xlarge tier (bwtmerge_tpu_torch/xlarge/), its base cut from six
+    folds to three for the script's time: the fixtures built on the card
+    from a cold cache (.smoke_cache/xl/: pieces of 2,000,000 random 50 bp
+    reads with sidecars, seeds 201-204, 208 and 209, and a 408 Mbp base of
+    piece 201 and three merge_fmi folds), then the 3-way fold of the base
+    and pieces 209 and 208 into 612 Mbp by xlarge.bench.run: the output's
+    size the inputs' sum, and the counts of 4,096 read-derived 32-mers and
+    of 2^18 patterns (through batch_count: K1) the inputs' sums; the
+    each kernel of the fold held against its plain version on the same
+    card tensors at the fold's shapes (rec_build over the base, piece 209
+    and the output; walk_planes_build over the base and the piece; K3 and
+    decode_rows_build over the piece's 2,000,000 reads; K2 walking them
+    through the base's and the piece's planes; K1 with 2^17 sorted queries
+    on the output's table); the output byte-identical to the pairwise
+    route's (merge_files of the base and piece 209, then of that and piece
+    208); launches, phases, per-step drain times, peak host RSS and peak
+    device memory of each part;
 
 Then the multi-device paths, on meshes that repeat the one card:
 
@@ -162,6 +179,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import filecmp
 import io
 import multiprocessing
 import json
@@ -1099,6 +1117,236 @@ def rec_build_near_limit(device, n_pos: int = REC_LIMIT_POSITIONS,
     return result
 
 
+XL_PATTERN_SEED = 7      # the xlarge phase's 2^18 patterns
+XL_BASE_FOLDS = 3        # the full tier's six, cut for the smoke's time
+XL_PROBE_QUERIES = 1 << 17    # batch_count's streamed batch: sp and ep of
+XL_PROBE_SENTINELS = 4096     # 2^16 patterns, the ended ones sentinels
+
+
+def xlarge_kernels(device, base: str, piece: str, out: str) -> dict:
+    """Each kernel of the xlarge fold against its plain version on the same
+    card tensors, exact, at the shapes the fold gives it: rec_build over
+    the nibbles of the base (408 Mbp), of piece 209 (102 Mbp) and of the
+    output (612 Mbp); walk_planes_build over the base's and the piece's
+    tables; decode_rows_build over the piece's table and K3 over its
+    2,000,000 lanes at the fold's first cap; K2 walking those reads through
+    the base's planes (step 1's walk) and through the piece's own (the
+    shape of step 2's second walk); K1 with a streamed batch of
+    XL_PROBE_QUERIES sorted queries on the output's table.  These launches
+    are not counted.  Per kernel: its cases (shape, max abs err, kernel ms
+    over 3 calls, plain ms of one call) and its max abs err."""
+    import torch
+
+    from bwtmerge_tpu_torch.formats.streaming_read import (alphabet_for,
+                                                           read_bwt_chunks)
+    from bwtmerge_tpu_torch.ops.decode_torch import (_pow2_at_least,
+                                                     build_decode_rows,
+                                                     build_decode_rows_plain,
+                                                     decode_creads_device,
+                                                     decode_creads_plain,
+                                                     rows_used)
+    from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
+                                                      streamed_probe_plain)
+    from bwtmerge_tpu_torch.ops.rank_torch import (BLK, DeviceFMIndex,
+                                                   build_rec, build_rec_plain,
+                                                   c_array,
+                                                   pack_nibbles_chunked)
+    from bwtmerge_tpu_torch.ops.walk_torch import (build_walk_planes,
+                                                   build_walk_planes_plain,
+                                                   walk_emit, walk_emit_plain)
+
+    checks = {}
+
+    def timed_once(fn):
+        """fn()'s result and the milliseconds of that one call."""
+        if device.type != "cuda":
+            t0 = time.perf_counter()
+            return fn(), (time.perf_counter() - t0) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(device)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return out, start.elapsed_time(end)
+
+    def held(name, shape, kernel, plain):
+        """kernel() against plain(), each a tensor or a tuple of tensors;
+        the kernel timed over 3 calls, the plain version (up to seconds a
+        call here) by the one call that is compared."""
+        got = kernel()
+        want, plain_ms = timed_once(plain)
+        got, want = [x if isinstance(x, tuple) else (x,) for x in (got, want)]
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"xlarge: {name} differs from its plain "
+                                 f"version at {shape} (max abs err {err})")
+        del got, want
+        case = {"shape": shape, "max_abs_err": err,
+                "ms": time_ms(kernel, device, 3), "plain_ms": plain_ms}
+        rec = checks.setdefault(name, {"cases": [], "max_abs_err": 0})
+        rec["cases"].append(case)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        log(f"xlarge: {name} equal to its plain version at {shape}: "
+            f"{json.dumps(case)}")
+
+    def index(path, fmt, what):
+        nib, counts, size, _ = pack_nibbles_chunked(read_bwt_chunks(path,
+                                                                    fmt))
+        nblk = size // BLK + 1
+        t = torch.from_numpy(nib[: nblk * BLK // 2]).to(device)
+        del nib
+        held("rec_build", f"{what}, {size} positions",
+             lambda: build_rec(t, nblk), lambda: build_rec_plain(t, nblk))
+        c = c_array(alphabet_for(fmt, counts, path).counts())
+        return DeviceFMIndex(rec=build_rec(t, nblk),
+                             C=torch.from_numpy(c).to(device), size=size,
+                             n_runs=0)
+
+    def planes_of(idx, what):
+        held("walk_planes_build", f"{what}, {idx.rec.shape[0]} blocks",
+             lambda: build_walk_planes(idx.rec),
+             lambda: build_walk_planes_plain(idx.rec))
+        return build_walk_planes(idx.rec)
+
+    def walk(planes, C, creads, what):
+        a0 = int(C[1])
+        held("walk_emit", f"reads of piece 209 {list(creads.shape)} through "
+             f"the {what}'s planes",
+             lambda: walk_emit(planes, C, creads, a0),
+             lambda: walk_emit_plain(planes, C, creads, a0))
+
+    # piece 209: its table, decode rows and decode (the fold's first cap)
+    p_idx = index(piece, "sga", "piece 209")
+    held("decode_rows_build", f"piece 209, {p_idx.rec.shape[0]} blocks",
+         lambda: build_decode_rows(p_idx.rec),
+         lambda: build_decode_rows_plain(p_idx.rec))
+    rows = build_decode_rows(p_idx.rec)
+    m = int(p_idx.C[1])
+    avg = p_idx.size // m
+    cap = _pow2_at_least(avg + avg // 4 + 16, 64)
+    got = torch.zeros((cap, m), dtype=torch.int8, device=device)
+    want = torch.zeros_like(got)
+    held("decode", f"piece 209, creads [{cap}, {m}]",
+         lambda: (got, decode_creads_device(p_idx, got, 0, rows)),
+         lambda: (want, decode_creads_plain(p_idx, want)))
+    alive = int(decode_creads_device(p_idx, got, 0, rows))
+    if alive:
+        raise AssertionError(f"xlarge: {alive} reads of piece 209 outlive "
+                             f"the cap of {cap}")
+    creads = got[: rows_used(got)].contiguous()
+    del rows, want
+    p_planes = planes_of(p_idx, "piece 209")
+    p_c = p_idx.C
+    del p_idx
+    walk(p_planes, p_c, creads, "piece")
+    del p_planes
+
+    # the base: its table and planes, step 1's walk
+    b_idx = index(base, "native", "the base")
+    b_planes = planes_of(b_idx, "the base")
+    b_c = b_idx.C
+    del b_idx
+    walk(b_planes, b_c, creads, "base")
+    del b_planes, creads, got
+    torch.cuda.empty_cache()
+
+    # the output: its table and a streamed batch of the count
+    o_idx = index(out, "native", "the output")
+    gen = torch.Generator(device=device).manual_seed(XL_PATTERN_SEED)
+    q = torch.sort(torch.randint(
+        0, o_idx.size + 1, (XL_PROBE_QUERIES - XL_PROBE_SENTINELS,),
+        generator=gen, device=device)).values
+    q[-1] = o_idx.size
+    q = torch.cat([q, torch.full((XL_PROBE_SENTINELS,), 2**31 - 1,
+                                 device=device, dtype=q.dtype)]
+                  ).to(torch.int32)
+    held("streamed_probe", f"the output, {o_idx.size} positions, "
+         f"{XL_PROBE_QUERIES} sorted queries",
+         lambda: streamed_probe(o_idx.rec, q, o_idx.size),
+         lambda: streamed_probe_plain(o_idx.rec, q, o_idx.size))
+    del o_idx, q
+    torch.cuda.empty_cache()
+    return checks
+
+
+def xlarge(device) -> tuple:
+    """The xlarge tier's 3-way fold (bwtmerge_tpu_torch/xlarge/), its base
+    cut to XL_BASE_FOLDS folds: the fixtures built on the card (pieces of
+    2,000,000 reads, seeds 201-204, 208 and 209; a 408 Mbp base; cached in
+    .smoke_cache/xl/), then bench.run's fold of the base and pieces 209
+    and 208 into 612 Mbp, which checks the output's size, and the counts of
+    the 4,096 read-derived 32-mers and of 2^18 patterns through batch_count
+    (K1) against the inputs'.  Then each kernel of the fold against its
+    plain version at the fold's shapes (xlarge_kernels), and the output's
+    bytes against the pairwise route's (merge_files of the base and piece
+    209, then of that and piece 208: the fold's input order; the other
+    order writes other bytes).  Launches of each part are counted apart.
+    Returns (the parts' records, the kernels' checks)."""
+    from bwtmerge_tpu_torch.models.merge import MergeConfig, merge_files
+    from bwtmerge_tpu_torch.xlarge import bench
+    from bwtmerge_tpu_torch.xlarge import fixtures as xl
+
+    cache = xl.default_cache()
+    seeds = xl.BASE_SEEDS[:XL_BASE_FOLDS]
+    result = {}
+    steps, counts, wall = drive(lambda: xl.build(cache, device=str(device),
+                                                 base_seeds=seeds))
+    result["fixtures"] = {"launches": counts, "wall_s": wall, "steps": steps}
+    log(f"xlarge fixtures: {json.dumps(result['fixtures'])}")
+
+    pat_path = os.path.join(cache, f"patterns_{N_PATTERNS}.txt")
+    if not os.path.exists(pat_path):
+        write_patterns(pat_path, [xl.piece_reads(s)[0].reshape(-1, READ_LEN)
+                                  for s in (209, 208)], N_PATTERNS,
+                       XL_PATTERN_SEED)
+    with open(pat_path) as f:
+        patterns = f.read().split()
+    out = os.path.join(cache, "smoke_fold.native")
+    record, counts, wall = drive(lambda: bench.run(
+        cache, base_folds=XL_BASE_FOLDS, device=str(device), out_path=out,
+        more_patterns=[patterns]))
+    # the fold: 3 walks, 2 walk tables, 2 decodes; 7 record tables: the
+    # fold's 3 and the counts' 4 (3 inputs and the output), each counting
+    # the 2^18 patterns through K1
+    want = {"walk_emit": 3, "walk_planes_build": 2, "decode": 2,
+            "decode_rows_build": 2, "rec_build": 7, "streamed_probe": 4}
+    if device.type == "cuda" and any(counts[k] < n for k, n in want.items()):
+        raise AssertionError(f"xlarge fold launched {counts}, needs at "
+                             f"least {want}")
+    result["fold"] = {"launches": counts, "wall_s": wall, "record": record}
+    log(f"xlarge fold: {json.dumps(result['fold'])}")
+
+    paths = [xl.base_path(cache, XL_BASE_FOLDS), xl.piece_path(cache, 209),
+             xl.piece_path(cache, 208)]
+    t0 = time.monotonic()
+    checks = xlarge_kernels(device, paths[0], paths[1], out)
+    log(f"xlarge: every kernel of the fold equal to its plain version at "
+        f"the fold's shapes, {time.monotonic() - t0:.1f} s")
+    mid = os.path.join(cache, "smoke_pair_1.native")
+    pair = os.path.join(cache, "smoke_pair_2.native")
+
+    def pairwise():
+        phases = []
+        for a, b, dst in ((paths[0], paths[1], mid), (mid, paths[2], pair)):
+            cfg = MergeConfig(device=str(device), temp_dir=cache,
+                              search="auto")
+            merge_files(a, b, dst, "native", "native", cfg, in_fmt_b="sga")
+            phases.append(cfg.timer.phases)
+        return phases
+
+    phases, counts, wall = drive(pairwise)
+    same_bytes(pair, out, "xlarge: the pairwise route against the k-way fold")
+    result["pairwise"] = {"launches": counts, "wall_s": wall,
+                          "phases_s": phases}
+    log(f"xlarge pairwise route: {json.dumps(result['pairwise'])}")
+    for p in (mid, pair, out):
+        os.remove(p)
+    return result, checks
+
+
 BUILDER_SOURCES = ("rec_build.cu", "walk.cu", "decode.cu")
 LARGE_A_POSITIONS = LARGE_A_READS * (READ_LEN + 1)
 LARGE_B_POSITIONS = 1_000_000 * (READ_LEN + 1)   # bench.py's large B
@@ -1406,9 +1654,8 @@ def numpy_fold(paths, out: str) -> None:
 
 
 def same_bytes(got: str, want: str, what: str) -> None:
-    with open(got, "rb") as f1, open(want, "rb") as f2:
-        if f1.read() != f2.read():
-            raise AssertionError(f"{what}: {got} differs from {want}")
+    if not filecmp.cmp(got, want, shallow=False):
+        raise AssertionError(f"{what}: {got} differs from {want}")
 
 
 def small_merge(device, fixtures: Fixtures, reads=SMALL) -> None:
@@ -2670,6 +2917,10 @@ def main() -> int:
         for key in ("spilled_walk_v", "walk", "trie"):
             paths[f"large_{key}"] = large[key]
         rec_build_near_limit(device)
+        # the xlarge tier's 3-way fold, its base cut to three folds
+        parts, xl_checks = xlarge(device)
+        for key, part in parts.items():
+            paths[f"xlarge_{key}"] = part
         # the multi-device paths, on meshes that repeat the one card
         p5 = p5_spill(device, fixtures)
         p5["main_path_peak_pinned_host_bytes"] = \
@@ -2706,6 +2957,10 @@ def main() -> int:
             rec["profile"] = {c: {"ms": r["ms"], "kernels": r["kernels"]}
                               for c, r in profiled["cases"].items()
                               if c.startswith(key)}
+        # held against the plain version at the xlarge fold's shapes too
+        rec["xlarge"] = xl_checks[rec["name"]]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 rec["xlarge"]["max_abs_err"])
         by_path = {k: r["launches"][rec["name"]] for k, r in paths.items()}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path

@@ -12,9 +12,11 @@ a two-input merge by the walk and by the trie search, the merge over meshes
 of CPU entries (-t 2, the dynamic queue, --index-placement sharded), a
 three-input k-way fold with its subprocess chain and a merge on the numpy
 backend with --profile, the bwt_build (numpy, torch and sharded),
-bwt_convert and bwt_inspect CLIs run, and the device interleave and the
-range-parallel host interleave merge a pair, so that a lazy import on any
-of these paths fails too.
+bwt_convert and bwt_inspect CLIs run, the device interleave and the
+range-parallel host interleave merge a pair, and the xlarge bench
+(bwtmerge_tpu_torch/xlarge/) builds its fixtures and big pieces and folds
+its 3-way and big-piece tiers at a small scale, so that a lazy import on
+any of these paths fails too.
 The second case reads the port's sources for such an import.
 """
 
@@ -66,7 +68,8 @@ CHILD = textwrap.dedent("""
                 "ops.sa_torch", "ops.interleave_torch", "models.build",
                 "models.parallel_merge", "parallel.distributed",
                 "parallel.mesh", "parallel.sort_distributed",
-                "ops.rank_sharded"):
+                "ops.rank_sharded", "xlarge.bench", "xlarge.fixtures",
+                "xlarge.big_pieces"):
         assert f"bwtmerge_tpu_torch.{new}" in names, new
     for name in names:
         importlib.import_module(name)
@@ -163,6 +166,13 @@ CHILD = textwrap.dedent("""
             workers=2)))
     assert type(fa.runs)(np.concatenate([p[0] for p in parts]),
                          np.concatenate([p[1] for p in parts])) == merged.runs
+    # the xlarge tier at 300 reads a piece: fixtures, a big piece, the
+    # 3-way and big-piece folds with their checks
+    from bwtmerge_tpu_torch.xlarge import bench as xl_bench
+    for tier in (["--pieces", "2"], ["--big", "1"]):
+        rc = xl_bench.main(tier + ["--reads", "300", "--base-folds", "1",
+                                   "--device", "cpu", "--cache", f"{d}/xl"])
+        assert rc == 0, (tier, rc)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "bwtmerge_tpu"))
     assert not bad, bad
