@@ -47,6 +47,7 @@ from ..kernels import resolve_device
 from ..models.fmi import load_fmi, serialize_fmi
 from ..models.merge import (MergeConfig, merge_files, merge_fmi,
                             merge_fmi_to_file)
+from ..ops.rank_torch import PatternBatch
 from ..utils.metrics import in_megabytes
 from .common import (check_format, print_formats, read_rows, report_totals,
                      verify_fmi)
@@ -184,7 +185,9 @@ def _save_checkpoint(ckpt_dir, inputs, completed, index, pre) -> None:
 class _Run:
     """What every merge route shares: parsed arguments, the device, the
     merge config, the patterns and their pre/post counts.  `device` is
-    None under --backend numpy: -v then counts on the host."""
+    None under --backend numpy: -v then counts on the host.  The patterns'
+    PatternBatch is built by the run's first count, inside its time, and
+    reused by the later ones."""
 
     def __init__(self, args, inputs, in_formats, output, device, config):
         self.args = args
@@ -195,12 +198,13 @@ class _Run:
         self.config = config
         self.verbose = not args.quiet
         self.patterns = read_rows(args.patterns) if args.patterns else []
+        self.batch = PatternBatch(self.patterns)
         self.pre = np.zeros(len(self.patterns), dtype=np.int64)
         self.post = np.zeros(len(self.patterns), dtype=np.int64)
         self.start = time.monotonic()
 
     def verify(self, fmi, role: str) -> None:
-        verify_fmi(fmi, role, self.patterns,
+        verify_fmi(fmi, role, self.batch,
                    self.pre if role == "Input" else self.post,
                    verbose=self.verbose, device=self.device)
 

@@ -16,7 +16,7 @@ import numpy as np
 
 from ..formats import FORMATS
 from ..models.fmi import FMI
-from ..ops.rank_torch import batch_count
+from ..ops.rank_torch import PatternBatch, batch_count
 from ..utils.metrics import in_gigabytes, in_megabytes, memory_usage
 
 
@@ -45,24 +45,27 @@ def check_format(tag: str, tool: str, kind: str) -> None:
         sys.exit(1)
 
 
-def verify_fmi(fmi: FMI, role: str, patterns: List[str],
-               results: np.ndarray, verbose: bool = True,
-               device="cuda") -> None:
+def verify_fmi(fmi: FMI, role: str, patterns, results: np.ndarray,
+               verbose: bool = True, device="cuda") -> None:
     """Count every pattern in `fmi` on `device` and ACCUMULATE the counts
     into `results` (reference verifyFMI, bwt_merge.cpp:263-285).  With
-    device=None the host FM-index counts (the numpy backend)."""
-    if not patterns:
+    device=None the host FM-index counts (the numpy backend).  `patterns`
+    is a list or a PatternBatch of one, whose byte matrix every count of a
+    run shares: the first count that needs it builds it."""
+    if not len(patterns):
         return
+    rows = patterns.patterns if isinstance(patterns, PatternBatch) \
+        else patterns
     start = time.monotonic()
     if device is None:
-        counts = fmi.verify(patterns)
+        counts = fmi.verify(rows)
     else:
         counts = batch_count(fmi.device_index(device), patterns,
                              fmi.alpha.char2comp)
     results += counts
     seconds = time.monotonic() - start
     if verbose:
-        total = sum(len(p) for p in patterns)
+        total = sum(len(p) for p in rows)
         rate = len(patterns) / seconds if seconds > 0 else float("inf")
         print(f"{role}: {len(patterns)} patterns, {int(counts.sum())} "
               f"occurrences ({seconds:.2f} s, {rate:.0f} patterns/s, "

@@ -369,74 +369,152 @@ def backward_search(index: DeviceFMIndex, patterns: torch.Tensor,
     return sp.to(torch.int32), ep.to(torch.int32)
 
 
-def encode_patterns(patterns, char2comp: np.ndarray):
-    """str/bytes/array patterns -> (int32[Q, max_len] comps, int32[Q]
-    lengths).  ASCII str patterns take one vectorised pass."""
+def pattern_bytes(patterns):
+    """str/bytes/array patterns -> (uint8[Q, max_len] bytes, int32[Q]
+    lengths, bool[Q] of the rows given as arrays of comp values, or None
+    when there are none).  Row q holds pattern q's bytes (a str UTF-8
+    encoded) and zeros past its length.  ASCII str patterns are joined and
+    encoded in one pass; the other forms go through a loop."""
+    q = len(patterns)
+    given = None
+    joined = None
     if all(isinstance(p, str) for p in patterns):
         joined = "".join(patterns).encode()
-        lens = np.fromiter((len(p) for p in patterns), np.int64,
-                           count=len(patterns))
-        if len(joined) == int(lens.sum()):        # one byte per character
-            flat = char2comp[np.frombuffer(joined, dtype=np.uint8)]
-            max_len = int(lens.max())
-            out = np.zeros((len(patterns), max_len), np.int32)
-            starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
-            rows = np.repeat(np.arange(len(patterns)), lens)
-            cols = np.arange(flat.size) - np.repeat(starts, lens)
-            out[rows, cols] = flat
-            return out, lens.astype(np.int32)
-    comps = []
-    for p in patterns:
-        if isinstance(p, str):
-            p = p.encode()
-        if isinstance(p, (bytes, bytearray)):
-            arr = char2comp[np.frombuffer(bytes(p), dtype=np.uint8)]
-        else:
-            arr = np.asarray(p)
-        comps.append(arr.astype(np.int32))
-    max_len = max(c.size for c in comps)
-    out = np.zeros((len(comps), max_len), np.int32)
-    for j, c in enumerate(comps):
-        out[j, : c.size] = c
-    return out, np.array([c.size for c in comps], np.int32)
+        lens = np.fromiter(map(len, patterns), np.int64, count=q)
+        if len(joined) != int(lens.sum()):        # not one byte a character
+            joined = None
+    if joined is None:
+        parts = []
+        given = np.zeros(q, bool)
+        for j, p in enumerate(patterns):
+            if isinstance(p, str):
+                p = p.encode()
+            if not isinstance(p, (bytes, bytearray)):
+                arr = np.asarray(p)
+                if arr.size and (arr.min() < 0 or arr.max() > 255):
+                    raise ValueError(f"pattern {j}: comp values outside "
+                                     f"[0, 256)")
+                p = arr.astype(np.uint8).tobytes()
+                given[j] = True
+            parts.append(bytes(p))
+        joined = b"".join(parts)
+        lens = np.fromiter(map(len, parts), np.int64, count=q)
+        if not given.any():
+            given = None
+    flat = np.frombuffer(joined, np.uint8)
+    max_len = int(lens.max()) if q else 0
+    if q and int(lens.min()) == max_len:
+        raw = flat.reshape(q, max_len).copy()
+    else:
+        raw = np.zeros((q, max_len), np.uint8)
+        raw[np.arange(max_len)[None, :] < lens[:, None]] = flat
+    return raw, lens.astype(np.int32), given
+
+
+class PatternBatch:
+    """A list of -v patterns as one byte matrix (pattern_bytes), shared by
+    every count of a run: built at the first count that needs it, so that
+    count's time holds it, and copied once to each device asked for.  Each
+    count maps the bytes through its own index's char2comp (map_comps)."""
+
+    def __init__(self, patterns):
+        self.patterns = patterns
+        self._bytes = None
+        self._on = {}
+
+    def __len__(self) -> int:
+        return len(self.patterns)
+
+    def on(self, device):
+        """(raw, lens, given) of pattern_bytes as tensors on `device`,
+        copied there once."""
+        dev = torch.device(device)
+        got = self._on.get(dev)
+        if got is None:
+            if self._bytes is None:
+                self._bytes = pattern_bytes(self.patterns)
+            got = tuple(None if a is None else torch.from_numpy(a).to(dev)
+                        for a in self._bytes)
+            self._on[dev] = got
+        return got
+
+
+def map_comps(raw: torch.Tensor, lens: torch.Tensor, given, table):
+    """int32 comps of byte rows: each byte through `table` (char2comp, 256
+    entries), the rows marked in `given` (comp values) as they are, and 0
+    past each row's length."""
+    r = raw.to(torch.int64)
+    keep = torch.arange(raw.shape[1], device=raw.device)[None, :] \
+        >= lens[:, None]
+    if given is not None:
+        keep |= given[:, None]
+    return torch.where(keep, r, table[r]).to(torch.int32)
+
+
+def encode_patterns(patterns, char2comp: np.ndarray):
+    """str/bytes/array patterns -> (int32[Q, max_len] comps, int32[Q]
+    lengths) on the host: a str or bytes pattern's bytes through char2comp,
+    an array's comp values as they are, zeros past each length."""
+    raw, lens, given = pattern_bytes(patterns)
+    comps = map_comps(torch.from_numpy(raw), torch.from_numpy(lens),
+                      None if given is None else torch.from_numpy(given),
+                      torch.from_numpy(np.asarray(char2comp, np.int32)))
+    return comps.numpy(), lens
 
 
 def batch_count(index: DeviceFMIndex, patterns, char2comp: np.ndarray,
                 chunk: int = 1 << 16) -> np.ndarray:
-    """Occurrence counts (int64) for a list of str/bytes/array patterns.
+    """Occurrence counts (int64) for a list of str/bytes/array patterns, or
+    a PatternBatch of them (whose byte matrix later counts reuse).
 
     Same chunking, padding and batch-size switch as rank_jax.batch_count:
     chunks of up to `chunk` patterns, pad rows are 1-char dummies, and
     batches of 2^14 or more take the streamed search (the hand-written
-    probe kernel on CUDA)."""
-    if not patterns:
+    probe kernel on CUDA).  The bytes are mapped through char2comp on the
+    index's device, chunk by chunk."""
+    if not len(patterns):
         return np.zeros(0, dtype=np.int64)
-    return count_encoded(index, *encode_patterns(patterns, char2comp), chunk)
+    if not isinstance(patterns, PatternBatch):
+        patterns = PatternBatch(patterns)
+    raw, lens, given = patterns.on(index.device)
+    table = torch.from_numpy(np.asarray(char2comp, np.int32)).to(index.device)
+    return _count_rows(index, lens, raw.shape[1], chunk, lambda s, e: (
+        map_comps(raw[s:e], lens[s:e], None if given is None else given[s:e],
+                  table)))
 
 
 def count_encoded(index: DeviceFMIndex, comps: np.ndarray,
                   comp_lens: np.ndarray, chunk: int = 1 << 16) -> np.ndarray:
     """batch_count of patterns already encoded: comps int[Q, max_len] (comp
     values, the first comp_lens[q] of row q read), comp_lens int[Q]."""
+    comps = torch.as_tensor(np.asarray(comps)).to(index.device)
+    lens = torch.as_tensor(np.asarray(comp_lens)).to(index.device)
+    if comps.shape[0] == 0:
+        return np.zeros(0, dtype=np.int64)
+    return _count_rows(index, lens, comps.shape[1], chunk,
+                       lambda s, e: comps[s:e])
+
+
+def _count_rows(index: DeviceFMIndex, lens: torch.Tensor, max_len: int,
+                chunk: int, rows) -> np.ndarray:
+    """Counts of Q patterns whose comp rows rows(start, end) gives on the
+    index's device: chunks of q_pad rows, only the last, partial one padded
+    with 1-char dummies; the counts stay on the device until one copy."""
     from .rank_streamed import backward_search_streamed
 
-    comps = np.asarray(comps)
-    comp_lens = np.asarray(comp_lens)
-    q, max_len = comps.shape
-    if q == 0:
-        return np.zeros(0, dtype=np.int64)
-    out = np.empty(q, dtype=np.int64)
+    q = lens.shape[0]
     q_pad = min(chunk, 1 << max(6, (q - 1).bit_length()))
     search = (backward_search_streamed if q_pad >= STREAMED_MIN_BATCH
               else backward_search)
+    out = torch.empty(q, dtype=torch.int64, device=index.device)
     for start in range(0, q, q_pad):
         n = min(q_pad, q - start)
-        pat = np.zeros((q_pad, max_len), dtype=np.int32)
-        lens = np.ones(q_pad, dtype=np.int32)  # pad queries: 1-char dummies
-        pat[:n] = comps[start:start + n]
-        lens[:n] = np.maximum(comp_lens[start:start + n], 1)
-        sp, ep = search(index, torch.from_numpy(pat).to(index.device),
-                        torch.from_numpy(lens).to(index.device), max_len)
-        got = (ep[:n].to(torch.int64) - sp[:n].to(torch.int64) + 1).cpu()
-        out[start:start + n] = np.maximum(0, got.numpy())
-    return out
+        pat = rows(start, start + n)
+        n_lens = lens[start:start + n].clamp(min=1)
+        if n < q_pad:                         # pad queries: 1-char dummies
+            pat = torch.cat([pat, pat.new_zeros((q_pad - n, max_len))])
+            n_lens = torch.cat([n_lens, n_lens.new_ones(q_pad - n)])
+        sp, ep = search(index, pat, n_lens, max_len)
+        out[start:start + n] = (ep[:n].to(torch.int64)
+                                - sp[:n].to(torch.int64) + 1).clamp(min=0)
+    return out.cpu().numpy()

@@ -97,9 +97,13 @@ Then bench.py's large scale and the record build at the layout's limit:
     spill files), byte-identical to the same merge without the budget and
     to the --search trie merge; rec_build launched once a record table
     built in each run; phases, -v passes, index builds, Mbases/s, spill
-    files.  Then the large A's table by rec_build and by build_rec_plain:
-    time and the peak of device memory above the nibbles; the large B's
-    decode rows by decode_rows_build against its plain version, timed;
+    files.  The unspilled walk merge counts large-walk-v's own -v file
+    (2^21 32-mers): K1 launched exactly 992 times a count, and a line
+    before the run's splits each count into the patterns' encoding, its
+    index's build on the card and the chunk loop.  Then the large A's
+    table by rec_build and by build_rec_plain: time and the peak of
+    device memory above the nibbles; the large B's decode rows by
+    decode_rows_build against its plain version, timed;
 13c. rec_build at 2^31 - 2 random positions (the largest index the int32
     layout takes), checked without the plain version's scan: row 0 is the
     base, neighbouring rows differ by the block counts and the packed
@@ -195,7 +199,8 @@ import time
 
 import numpy as np
 
-from bwtmerge_tpu_torch.bench import (device_us_by_kernel, indexes_built,
+from bwtmerge_tpu_torch.bench import (CELLS, PATTERN_LEN,
+                                      device_us_by_kernel, indexes_built,
                                       kernel_name, phase_times,
                                       spill_files_made, verify_times,
                                       write_patterns)
@@ -2295,6 +2300,8 @@ LARGE = (2_000_000, 1_000_000)    # bench.py SCALES["large"] reads, A and B
 LARGE_SEEDS = (101, 102)          # bench.py:134
 LARGE_BLOCKS = 8                  # bench.py SCALES["large"] search blocks
 LARGE_BUDGET = ("3", "2")         # -r 3 -m 2: 6 Mi runs, bench.py's threshold
+CELL_PATTERNS = CELLS["large-walk-v"].patterns   # its -v file: 2^21 32-mers
+COUNT_CHUNK = 1 << 16             # rows a chunk of rank_torch.batch_count
 
 
 def build_large_fixture(device, path: str, m: int, seed: int,
@@ -2385,6 +2392,65 @@ def rec_build_memory(device, path: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def count_split(device):
+    """Within the block, each -v count of the merge CLI is split into its
+    parts, on the host clock, each part ending in a synchronize: the
+    patterns' encoding (rank_torch.encode_patterns per count, or the byte
+    matrix of rank_torch.pattern_bytes, built once a run, where the tree
+    has it), the build of its index on the device, and the rest (the
+    chunk loop: mapping, search, the counts' copy).  Yields the list of
+    {role, count_s, encode_s, index_build_s, search_s}."""
+    import torch
+
+    from bwtmerge_tpu_torch.cli import bwt_merge
+    from bwtmerge_tpu_torch.ops import rank_torch
+
+    split = []
+    encode = {"s": 0.0, "open": False}
+    plain = {"verify_fmi": bwt_merge.verify_fmi}
+    names = [n for n in ("encode_patterns", "pattern_bytes")
+             if hasattr(rank_torch, n)]
+
+    def timed_encode(fn):
+        def run(*args, **kw):
+            if encode["open"]:           # one encoder calling the other
+                return fn(*args, **kw)
+            encode["open"] = True
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kw)
+            finally:
+                encode["open"] = False
+                encode["s"] += time.monotonic() - t0
+        return run
+
+    def verify(fmi, role, *args, **kw):
+        e0 = encode["s"]
+        with indexes_built(device) as built:
+            t0 = time.monotonic()
+            plain["verify_fmi"](fmi, role, *args, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            total = time.monotonic() - t0
+        enc = encode["s"] - e0
+        build = sum(s for *_, s in built)
+        split.append({"role": role, "count_s": total, "encode_s": enc,
+                      "index_build_s": build,
+                      "search_s": total - enc - build})
+
+    for n in names:
+        plain[n] = getattr(rank_torch, n)
+        setattr(rank_torch, n, timed_encode(plain[n]))
+    bwt_merge.verify_fmi = verify
+    try:
+        yield split
+    finally:
+        bwt_merge.verify_fmi = plain["verify_fmi"]
+        for n in names:
+            setattr(rank_torch, n, plain[n])
+
+
 def large_path(device) -> dict:
     """The two-input walk merge at bench.py's large scale: A of 2,000,000
     and B of 1,000,000 random 50 bp reads (bench.py's seeds; B with its
@@ -2392,9 +2458,12 @@ def large_path(device) -> dict:
     -v patterns --device-blocks 8 -r 3 -m 2 -d DIR: the rank array past 6
     Mi runs drains into several spill files; the output must equal, byte
     for byte, the same merge's without the spill and the --search trie
-    merge's; rec_build must have launched once an index built.  Then the
-    large A's table by rec_build and by the plain version: time and peak
-    device memory."""
+    merge's; rec_build must have launched once an index built.  The
+    unspilled walk merge takes large-walk-v's own -v file (2^21 32-mers,
+    bench.write_patterns): each of its three counts split into encoding,
+    index build and search (count_split), on a line before the run's, and
+    K1 launched 992 times a count.  Then the large A's table by rec_build
+    and by the plain version: time and peak device memory."""
     from bwtmerge_tpu_torch.formats import read_bwt
 
     d = os.path.join(CACHE, f"large_{LARGE[0]}_{LARGE[1]}")
@@ -2408,6 +2477,11 @@ def large_path(device) -> dict:
     if not os.path.exists(pat_path):
         write_patterns(pat_path, [reads_of(m, seed) for m, seed
                                   in zip(LARGE, LARGE_SEEDS)], N_PATTERNS, 3)
+    cell_pat = os.path.join(d, f"patterns_{CELL_PATTERNS}.txt")
+    if not os.path.exists(cell_pat):
+        write_patterns(cell_pat, [reads_of(m, seed) for m, seed
+                                  in zip(LARGE, LARGE_SEEDS)], CELL_PATTERNS,
+                       3)
     log(f"large fixtures ready in {time.monotonic() - t0:.1f} s: "
         f"{json.dumps(made)}")
     spill_dir = os.path.join(d, "spill")
@@ -2417,14 +2491,17 @@ def large_path(device) -> dict:
         "spilled_walk_v": ["-v", pat_path, "--device-blocks",
                            str(LARGE_BLOCKS), "-r", LARGE_BUDGET[0], "-m",
                            LARGE_BUDGET[1], "-d", spill_dir],
-        "walk": ["--device-blocks", str(LARGE_BLOCKS)],
+        "walk": ["-v", cell_pat, "--device-blocks", str(LARGE_BLOCKS)],
         "trie": ["--search", "trie"]}
     b_bases = read_bwt(b_path, "sga")[0].size()
     result = {"a_reads": LARGE[0], "b_reads": LARGE[1], "b_bases": b_bases}
     outs = {}
     for name, extra in runs_of.items():
         outs[name] = os.path.join(d, f"merged_{name}.sga")
-        with spill_files_made() as spilled, indexes_built(device) as built:
+        split_of = count_split(device) if name == "walk" \
+            else contextlib.nullcontext(None)
+        with spill_files_made() as spilled, \
+                indexes_built(device) as built, split_of as split:
             rc, std, err, counts, wall = run_cli(
                 [a_path, b_path, outs[name], *common, *extra])
         if rc != 0:
@@ -2441,10 +2518,18 @@ def large_path(device) -> dict:
         if name != "spilled_walk_v" and spilled:
             raise AssertionError(f"large merge {name} spilled {spilled}")
         need = ("streamed_probe", "walk_emit", "walk_planes_build") \
-            if name == "spilled_walk_v" else \
-            ("walk_emit",) if name == "walk" else ("streamed_probe",)
+            if name != "trie" else ("streamed_probe",)
         if device.type == "cuda" and any(counts[k] < 1 for k in need):
             raise AssertionError(f"large merge {name} launched {counts}")
+        if name == "walk":
+            # K1 only in the counts: 2^21 / 2^16 chunks of 31 steps each
+            k1 = 3 * (CELL_PATTERNS // COUNT_CHUNK) * (PATTERN_LEN - 1)
+            if device.type == "cuda" and counts["streamed_probe"] != k1:
+                raise AssertionError(f"large walk -v launched K1 "
+                                     f"{counts['streamed_probe']} times, "
+                                     f"not {k1}")
+            log(f"large walk -v, {CELL_PATTERNS} patterns, each count "
+                f"split: {json.dumps(split)}")
         phases = phase_times(err)
         merge_s = (phases.get("search (rank array)", 0)
                    + phases.get("merge (interleave)", 0))
@@ -2454,6 +2539,7 @@ def large_path(device) -> dict:
                               "s": sec} for k, n, t, sec in built],
             "spill_files": len(spilled),
             "spill_bytes": sum(x[1] for x in spilled),
+            **({"count_split": split} if split else {}),
             "merge_mbases_s": b_bases / 1e6 / max(merge_s, 1e-9),
             "wall_s": wall, "launches": counts}
         log(f"large merge ({name}), {LARGE[0]}+{LARGE[1]} reads: "

@@ -87,6 +87,29 @@ def test_cli_matches_jax(tmp_path, inputs, capsys, extra):
     assert bool(hashes) == ("--hash" in extra)
 
 
+def test_v_builds_the_pattern_batch_once_a_run(tmp_path, inputs, capsys,
+                                               monkeypatch):
+    # the three counts of a two-input -v merge share one byte matrix of
+    # the patterns; counts and exit status are the JAX CLI's
+    from bwtmerge_tpu_torch.ops import rank_torch
+
+    built = []
+    plain = rank_torch.pattern_bytes
+    monkeypatch.setattr(rank_torch, "pattern_bytes",
+                        lambda p: built.append(len(p)) or plain(p))
+    a, b, pats, _, _ = inputs
+    res = {}
+    for name, cli, dev in (("jax", jax_cli, []),
+                           ("port", port_cli, ["--device", "cpu"])):
+        rc, counts, _ = _run(cli, [a, b, str(tmp_path / f"{name}.sga"),
+                                   "-i", "sga", "-o", "sga", "-v", pats,
+                                   *dev], capsys)
+        res[name] = (rc, counts)
+    assert res["port"] == res["jax"]
+    assert res["port"][0] == 0 and len(res["port"][1]) == 3
+    assert built == [len(open(pats).read().split())]
+
+
 def _unsampled_lane(n_reads, max_len):
     """A lane the sidecar gate's LF spot-check does not sample
     (bwtmerge_tpu.models.merge._creads_spotcheck)."""

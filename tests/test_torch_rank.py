@@ -185,8 +185,19 @@ def _patterns(seqs, rng, n):
     return out
 
 
-@pytest.mark.parametrize("n", [50, 1 << 14])
-def test_batch_count_matches_jax(n):
+def _swapped_t_n():
+    """char2comp of the SORTED order ($ACGNT): T and N swap comps."""
+    c2c = Alphabet().char2comp.copy()
+    for ch, comp in (("T", 5), ("N", 4)):
+        c2c[ord(ch)] = c2c[ord(ch.lower())] = comp
+    return c2c
+
+
+@pytest.mark.parametrize("n, alphabets", [
+    pytest.param(50, 1, id="50"), pytest.param(1 << 14, 1, id="16384"),
+    pytest.param(50, 2, id="50-two_alphabets"),
+    pytest.param(1 << 14, 2, id="16384-two_alphabets")])
+def test_batch_count_matches_jax(n, alphabets, monkeypatch):
     seqs = _collection(6)
     runs = oracle.build_bwt(seqs)
     j = rank_jax.DeviceFMIndex.build(runs, runs.counts(6))
@@ -194,7 +205,26 @@ def test_batch_count_matches_jax(n):
     pats = _patterns(seqs, np.random.default_rng(15), n)
     c2c = Alphabet().char2comp
     want = rank_jax.batch_count(j, pats, c2c)
-    got = rank_torch.batch_count(t, pats, c2c)
+    if alphabets == 2:
+        # one PatternBatch counted through two indexes of two alphabets:
+        # its byte matrix is built once, each count maps it its own way
+        built = []
+        plain = rank_torch.pattern_bytes
+        monkeypatch.setattr(rank_torch, "pattern_bytes",
+                            lambda p: built.append(1) or plain(p))
+        batch = rank_torch.PatternBatch(pats)
+        got = rank_torch.batch_count(t, batch, c2c)
+        seqs2 = _collection(7)
+        runs2 = oracle.build_bwt(seqs2)
+        c2c2 = _swapped_t_n()
+        j2 = rank_jax.DeviceFMIndex.build(runs2, runs2.counts(6))
+        t2 = rank_torch.DeviceFMIndex.build(runs2, runs2.counts(6), "cpu")
+        np.testing.assert_array_equal(
+            rank_torch.batch_count(t2, batch, c2c2),
+            rank_jax.batch_count(j2, pats, c2c2))
+        assert len(built) == 1
+    else:
+        got = rank_torch.batch_count(t, pats, c2c)
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int64 and got.sum() > 0
     # the bytes/array forms encode to the same comps as the str fast path
@@ -202,6 +232,70 @@ def test_batch_count_matches_jax(n):
              for k, p in enumerate(pats[:40])]
     np.testing.assert_array_equal(rank_torch.batch_count(t, mixed, c2c),
                                   want[:40])
+
+
+def _loop_encode(patterns, char2comp):
+    """The per-pattern encoding of rank_jax.batch_count: str encoded, bytes
+    through char2comp, arrays as they are, zero-padded rows."""
+    comps = []
+    for p in patterns:
+        if isinstance(p, str):
+            p = p.encode()
+        if isinstance(p, (bytes, bytearray)):
+            arr = char2comp[np.frombuffer(bytes(p), dtype=np.uint8)]
+        else:
+            arr = np.asarray(p)
+        comps.append(arr.astype(np.int32))
+    out = np.zeros((len(comps), max(c.size for c in comps)), np.int32)
+    for k, c in enumerate(comps):
+        out[k, : c.size] = c
+    return out, np.array([c.size for c in comps], np.int32)
+
+
+def _pattern_case(case, tmp_path):
+    rng = np.random.default_rng(31)
+    dna = np.array(list("ACGT"))
+    if case == "uniform":
+        return ["".join(rng.choice(dna, 32)) for _ in range(300)]
+    if case == "ragged":
+        return ["".join(rng.choice(np.array(list("ACGTNacgt$x")),
+                                   int(rng.integers(0, 40))))
+                for _ in range(300)]
+    if case == "crlf":
+        from bwtmerge_tpu_torch.cli.common import read_rows
+
+        path = tmp_path / "crlf.txt"
+        path.write_bytes(b"ACGT\r\nGATTACA\r\n\r\nTTN\r\nacg")
+        return read_rows(str(path))
+    if case == "one_long":
+        return ["ACG"] * 20 + ["".join(rng.choice(dna, 5000))] + ["T"] * 20
+    if case == "bytes_and_arrays":
+        return [b"ACGT", np.array([1, 2, 3]), "GA", bytearray(b"\x00Tn"),
+                np.zeros(0, np.int64), np.array([5, 0, 4, 4])]
+    return ["ACéGT", "TTT", "中A", "", "N\u00ff"]     # non-ASCII str
+
+
+@pytest.mark.parametrize("case", ["uniform", "ragged", "crlf", "one_long",
+                                  "bytes_and_arrays", "non_ascii"])
+def test_pattern_batch_encodes_as_the_loop(case, tmp_path):
+    """The byte matrix mapped through char2comp (as batch_count maps it on
+    the index's device, here CPU tensors), and encode_patterns, equal the
+    per-pattern loop's comps and lengths, for both alphabets."""
+    pats = _pattern_case(case, tmp_path)
+    batch = rank_torch.PatternBatch(pats)
+    raw, lens, given = batch.on("cpu")
+    assert raw.dtype == torch.uint8 and lens.dtype == torch.int32
+    assert (given is not None) == (case == "bytes_and_arrays")
+    for c2c in (Alphabet().char2comp, _swapped_t_n()):
+        want_c, want_l = _loop_encode(pats, c2c)
+        table = torch.from_numpy(c2c.astype(np.int32))
+        np.testing.assert_array_equal(
+            rank_torch.map_comps(raw, lens, given, table).numpy(), want_c)
+        np.testing.assert_array_equal(lens.numpy(), want_l)
+        comps, got_l = rank_torch.encode_patterns(pats, c2c)
+        np.testing.assert_array_equal(comps, want_c)
+        np.testing.assert_array_equal(got_l, want_l)
+        assert comps.dtype == np.int32 and got_l.dtype == np.int32
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
