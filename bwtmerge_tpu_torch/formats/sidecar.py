@@ -17,7 +17,8 @@ Layout (little-endian):
           concatenated in BWT endmarker-rank order, low nibble first
 
 The in-memory walk layout ([max_len, R] int8, characters from the END,
-0 past each read's end) is assembled on load with vectorized numpy.
+0 past each read's end) is assembled on load with vectorized numpy, tile
+by tile (creads_layout).
 
 A matching-content gate lives in models/merge.py (_creads_consistent):
 the header hash proves the FILE is intact; the LF spot-walk there proves
@@ -32,6 +33,7 @@ import numpy as np
 
 MAGIC_V1 = 0x31534452544D5742
 MAGIC = 0x32534452544D5742
+LAYOUT_TILE_BYTES = 1 << 18      # characters a tile of creads_layout
 
 
 def _fnv1a_packed(packed: np.ndarray) -> int:
@@ -104,19 +106,35 @@ def read_sidecar(path: str):
 
 def creads_layout(lengths: np.ndarray, flat: np.ndarray) -> np.ndarray:
     """Assemble the walk layout: int8[max_len, R], row t lane r = the t-th
-    character of read r FROM THE END (0 past the end)."""
+    character of read r FROM THE END (0 past the end).
+
+    Reads of one length are rows of `flat` as it stands; otherwise each
+    tile's reads are filled right-aligned into a zeroed [reads, max_len]
+    block through a boolean mask.  Either way each tile of LAYOUT_TILE_BYTES
+    is flipped and transposed into place while it is in the core's cache;
+    no index array spans the characters."""
     r = int(lengths.size)
     lens = lengths.astype(np.int64)
     max_len = int(lens.max()) if r else 0
     out = np.zeros((max(max_len, 1), max(r, 1)), np.int8)
     if r == 0 or flat.size == 0:
         return out
-    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
-    # emission (t, r) for t < len_r reads flat[starts_r + len_r - 1 - t]
-    reps = np.repeat(np.arange(r, dtype=np.int64), lens)
-    t_idx = np.arange(flat.size, dtype=np.int64) - np.repeat(starts, lens)
-    src = np.repeat(starts + lens - 1, lens) - t_idx
-    out[t_idx, reps] = flat[src]
+    ends = np.cumsum(lens)
+    if int(ends[-1]) != flat.size:
+        raise ValueError("sidecar: lengths do not sum to the char count")
+    tile = max(1, LAYOUT_TILE_BYTES // max_len)
+    equal = int(lens.min()) == max_len
+    cols = np.arange(max_len)
+    for r0 in range(0, r, tile):
+        r1 = min(r0 + tile, r)
+        if equal:
+            rows = flat[r0 * max_len:r1 * max_len].reshape(r1 - r0, max_len)
+        else:
+            n = lens[r0:r1]
+            rows = np.zeros((r1 - r0, max_len), np.int8)
+            rows[cols >= max_len - n[:, None]] = flat[ends[r0] - n[0]:
+                                                      ends[r1 - 1]]
+        out[:, r0:r1] = rows[:, ::-1].T
     return out
 
 

@@ -329,10 +329,14 @@ def _creads_consistent(creads, b: FMI) -> bool:
 
     The sidecar file itself carries an FNV-1a hash checked at load time
     (formats/sidecar.py), which guards torn writes."""
+    from ..native import byte_counts
+
     if creads.shape[1] != b.sequences():
         return False
-    have = np.bincount(creads.reshape(-1).astype(np.uint8),
-                       minlength=8).astype(np.int64)
+    flat = creads.reshape(-1)
+    if flat.dtype.itemsize != 1:
+        flat = flat.astype(np.uint8)
+    have = byte_counts(flat)       # of the values as uint8, no int64 copy
     C = b.alpha.C.astype(np.int64)
     want = np.diff(C[:7])          # counts of comps 0..5
     if not np.array_equal(have[1:6], want[1:]):

@@ -6,6 +6,7 @@ function is called; the port has no numpy fallback for these functions.
 """
 
 from .api import (  # noqa: F401
+    byte_counts,
     fnv1a_bytes,
     fragment_phase_table,
     interleave_native,
@@ -22,6 +23,7 @@ from .api import (  # noqa: F401
     rle_encode,
     rle_encode_at,
     rle_hash,
+    run_block_sums,
     sga_stream_chunk,
 )
 from .build import load_library  # noqa: F401

@@ -13,6 +13,7 @@ from .build import load_library
 _u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+_u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
 
 
 def _lib() -> ctypes.CDLL:
@@ -595,3 +596,57 @@ def rle_encode_at(syms, lens, start_offset: int) -> bytes:
     written = lib.rle_encode_at(syms, lens, syms.size, out, start_offset)
     assert written == size
     return out.tobytes()
+
+
+def _configure_run_sums(lib) -> None:
+    if getattr(lib, "_bwtmerge_run_sums_configured", False):
+        return
+    for name, lens_p in (("run_block_sums64", _i64p),
+                         ("run_block_sums32", _u32p)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [_u8p, lens_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, _i64p, _i64p]
+    lib.byte_counts.restype = None
+    lib.byte_counts.argtypes = [_u8p, ctypes.c_int64, _i64p]
+    lib._bwtmerge_run_sums_configured = True
+
+
+def run_block_sums(syms, lens, stride: int, sigma: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The sampled sums of a block-sampled rank index in one pass over the
+    runs: (starts int64[nb + 1], occ int64[nb + 1, sigma]), row b summing
+    runs [0, b * stride), nb = max(1, ceil(runs / stride)).  uint32 run
+    lengths are read as they are; other dtypes as int64."""
+    syms = _as_u8(syms)
+    lens = np.asarray(lens)
+    if lens.size != syms.size:
+        raise ValueError("run_block_sums: syms and lens differ in length")
+    if stride < 1 or not 1 <= sigma <= 256:
+        raise ValueError(f"run_block_sums: stride {stride} or sigma {sigma} "
+                         "out of range")
+    lib = _lib()
+    _configure_run_sums(lib)
+    if lens.dtype == np.uint32:
+        fn, lens = lib.run_block_sums32, np.ascontiguousarray(lens)
+    else:
+        fn, lens = lib.run_block_sums64, _as_i64(lens)
+    nb = max(1, -(-syms.size // stride))
+    starts = np.empty(nb + 1, np.int64)
+    occ = np.empty((nb + 1, sigma), np.int64)
+    written = fn(syms, lens, syms.size, stride, sigma, starts, occ)
+    assert written == nb
+    return starts, occ
+
+
+def byte_counts(data) -> np.ndarray:
+    """int64[256]: the occurrences of each byte value in `data`, a 1-byte
+    array read as uint8 (np.bincount without its int64 copy)."""
+    data = np.ascontiguousarray(data)
+    if data.dtype.itemsize != 1:
+        raise ValueError(f"byte_counts: {data.dtype} is not a 1-byte type")
+    lib = _lib()
+    _configure_run_sums(lib)
+    out = np.empty(256, np.int64)
+    lib.byte_counts(data.reshape(-1).view(np.uint8), data.size, out)
+    return out

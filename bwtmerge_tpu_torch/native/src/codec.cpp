@@ -176,3 +176,60 @@ EXPORT int64_t nib4_pack(const uint8_t* syms, const int64_t* lens, int64_t n,
   }
   return p;
 }
+
+// The sampled sums of a block-sampled rank index (ops/rank_np.py,
+// SparseRankIndex) in one pass over the runs: for b = 0..nb, starts[b] =
+// the positions of runs [0, b * stride) and occ[b * sigma + c] those of
+// symbol c among them, nb = max(1, ceil(n / stride)).  A symbol at or past
+// sigma counts in starts only.  Returns nb, or -1 for a stride below 1 or
+// a sigma outside [1, 256].
+template <typename L>
+int64_t run_block_sums(const uint8_t* syms, const L* lens, int64_t n,
+                       int64_t stride, int64_t sigma, int64_t* starts,
+                       int64_t* occ) {
+  if (stride < 1 || sigma < 1 || sigma > 256) return -1;
+  const int64_t nb = n > stride ? (n + stride - 1) / stride : 1;
+  int64_t acc[256] = {};
+  int64_t pos = 0;
+  starts[0] = 0;
+  for (int64_t c = 0; c < sigma; c++) occ[c] = 0;
+  for (int64_t b = 0; b < nb; b++) {
+    const int64_t end = (b + 1) * stride < n ? (b + 1) * stride : n;
+    for (int64_t r = b * stride; r < end; r++) {
+      const int64_t l = static_cast<int64_t>(lens[r]);
+      pos += l;
+      acc[syms[r]] += l;
+    }
+    starts[b + 1] = pos;
+    for (int64_t c = 0; c < sigma; c++) occ[(b + 1) * sigma + c] = acc[c];
+  }
+  return nb;
+}
+
+EXPORT int64_t run_block_sums64(const uint8_t* syms, const int64_t* lens,
+                                int64_t n, int64_t stride, int64_t sigma,
+                                int64_t* starts, int64_t* occ) {
+  return run_block_sums(syms, lens, n, stride, sigma, starts, occ);
+}
+
+EXPORT int64_t run_block_sums32(const uint8_t* syms, const uint32_t* lens,
+                                int64_t n, int64_t stride, int64_t sigma,
+                                int64_t* starts, int64_t* occ) {
+  return run_block_sums(syms, lens, n, stride, sigma, starts, occ);
+}
+
+// Occurrences of each byte value in data[0, n) into counts[256]; four
+// tables in turn, so that a run of one value does not chain its stores.
+EXPORT void byte_counts(const uint8_t* data, int64_t n, int64_t* counts) {
+  int64_t part[4][256] = {};
+  int64_t i = 0;
+  for (; i + 4 <= n; i += 4) {
+    part[0][data[i]]++;
+    part[1][data[i + 1]]++;
+    part[2][data[i + 2]]++;
+    part[3][data[i + 3]]++;
+  }
+  for (; i < n; i++) part[0][data[i]]++;
+  for (int v = 0; v < 256; v++)
+    counts[v] = part[0][v] + part[1][v] + part[2][v] + part[3][v];
+}

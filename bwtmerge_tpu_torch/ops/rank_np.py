@@ -110,8 +110,6 @@ class SparseRankIndex:
     blk_occ: np.ndarray       # int64[NB+1, sigma] occ at those runs
     stride: int
 
-    SLAB_RUNS = 1 << 24       # runs summed at a time (a multiple of stride)
-
     @classmethod
     def build(cls, runs: RunArrays, sigma: int = SIGMA,
               stride: int = 1 << 12) -> "SparseRankIndex":
@@ -124,24 +122,11 @@ class SparseRankIndex:
                     sigma: int = SIGMA,
                     stride: int = 1 << 12) -> "SparseRankIndex":
         """The index over run arrays, kept as given; the sampled sums are
-        taken slab by slab, so no temporary spans all the runs."""
-        r = syms.size
-        nb = max(1, -(-r // stride))
-        blk_starts = np.zeros(nb + 1, np.int64)
-        blk_occ = np.zeros((nb + 1, sigma), np.int64)
-        slab = max(stride, cls.SLAB_RUNS // stride * stride)
-        for s0 in range(0, r, slab):
-            s1 = min(s0 + slab, r)
-            cuts = np.arange(0, s1 - s0, stride)
-            b0 = s0 // stride + 1
-            ls = lens[s0:s1].astype(np.int64)
-            blk_starts[b0:b0 + cuts.size] = np.add.reduceat(ls, cuts)
-            ss = syms[s0:s1]
-            for c in range(sigma):
-                blk_occ[b0:b0 + cuts.size, c] = np.add.reduceat(
-                    np.where(ss == c, ls, 0), cuts)
-        np.cumsum(blk_starts, out=blk_starts)
-        np.cumsum(blk_occ, axis=0, out=blk_occ)
+        taken in one pass over the runs by the native runtime, with no
+        temporary the size of the runs."""
+        from ..native import run_block_sums
+
+        blk_starts, blk_occ = run_block_sums(syms, lens, stride, sigma)
         return cls(syms=syms, lens=lens, blk_starts=blk_starts,
                    blk_occ=blk_occ, stride=stride)
 

@@ -2,6 +2,8 @@
 """Drive the PyTorch port (bwtmerge_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --search-split N   # only the large walk merges'
+                                             # search phases, N times each
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -100,7 +102,11 @@ Then bench.py's large scale and the record build at the layout's limit:
     files.  The unspilled walk merge counts large-walk-v's own -v file
     (2^21 32-mers): K1 launched exactly 992 times a count, and a line
     before the run's splits each count into the patterns' encoding, its
-    index's build on the card and the chunk loop.  Then the large A's
+    index's build on the card and the chunk loop; a line after each walk
+    merge splits its search phase (search_split: B's sidecar read, its
+    layout, the gate's composition count, index build and spot walk, A's
+    index, the planes, the walk and its copies, the primed stream).  Then
+    the large A's
     table by rec_build and by build_rec_plain: time and the peak of
     device memory above the nibbles; the large B's decode rows by
     decode_rows_build against its plain version, timed;
@@ -2451,6 +2457,119 @@ def count_split(device):
             setattr(rank_torch, n, plain[n])
 
 
+@contextlib.contextmanager
+def search_split(device):
+    """Within the block, each search phase of a two-input merge
+    (models/merge._build_ra) is split into its parts, on the host clock,
+    each part ending in a synchronize: the sidecar's read, hash and unpack
+    (formats/sidecar.read_sidecar), the walk layout (creads_layout), the
+    gate's composition count (_creads_consistent less its spot check), the
+    spot check's SparseRankIndex build and its LF walk (_creads_spotcheck
+    less the build), A's device index, build_walk_planes, blocked_walk
+    with its copies to the host, and _prime_stream; rest_s is the phase
+    less its parts.  Yields the list of {part_s: seconds, search_s}, one a
+    search phase."""
+    import torch
+
+    from bwtmerge_tpu_torch.formats import sidecar
+    from bwtmerge_tpu_torch.models import fmi, merge
+    from bwtmerge_tpu_torch.ops import ra_stream, rank_np, walk_torch
+
+    splits = []
+    open_ = []                   # the search phase being split, if any
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kw)
+            finally:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                if open_:
+                    open_[0][key] = (open_[0].get(key, 0.0)
+                                     + time.monotonic() - t0)
+        return run
+
+    def timed_search(*args, **kw):
+        open_.append({})
+        try:
+            out = timed("search_s", plain["_build_ra"])(*args, **kw)
+        finally:
+            part = open_.pop()
+        part["composition_s"] = (part.get("consistent_s", 0.0)
+                                 - part.get("spotcheck_s", 0.0))
+        part["spot_walk_s"] = (part.pop("spotcheck_s", 0.0)
+                               - part.get("rank_index_s", 0.0))
+        part.pop("consistent_s", None)
+        part["rest_s"] = part["search_s"] - sum(
+            v for k, v in part.items() if k not in ("search_s", "rest_s"))
+        splits.append(part)
+        return out
+
+    build = rank_np.SparseRankIndex.build.__func__
+    plain = {"_build_ra": merge._build_ra,
+             "_creads_consistent": merge._creads_consistent,
+             "_creads_spotcheck": merge._creads_spotcheck,
+             "_prime_stream": merge._prime_stream,
+             "read_sidecar": sidecar.read_sidecar,
+             "creads_layout": sidecar.creads_layout,
+             "device_index": fmi.FMI.device_index,
+             "build_walk_planes": walk_torch.build_walk_planes,
+             "blocked_walk": ra_stream.blocked_walk}
+    keys = {"_creads_consistent": "consistent_s",
+            "_creads_spotcheck": "spotcheck_s",
+            "_prime_stream": "prime_stream_s",
+            "read_sidecar": "sidecar_read_s", "creads_layout": "layout_s",
+            "device_index": "device_index_s",
+            "build_walk_planes": "walk_planes_s",
+            "blocked_walk": "blocked_walk_s"}
+    owners = {"read_sidecar": sidecar, "creads_layout": sidecar,
+              "device_index": fmi.FMI, "build_walk_planes": walk_torch,
+              "blocked_walk": ra_stream}
+    for name, key in keys.items():
+        setattr(owners.get(name, merge), name, timed(key, plain[name]))
+    merge._build_ra = timed_search
+    rank_np.SparseRankIndex.build = classmethod(
+        timed("rank_index_s", build))
+    try:
+        yield splits
+    finally:
+        for name, fn in plain.items():
+            setattr(owners.get(name, merge), name, fn)
+        rank_np.SparseRankIndex.build = classmethod(build)
+
+
+def search_splits(device, passes: int) -> dict:
+    """large-walk-v's and large-walk-spill's merges (the bench's arguments,
+    no -v) of the large pair, in turns, `passes` times each, every search
+    phase split by search_split: {cell: [split, ...]}."""
+    d = os.path.join(CACHE, f"large_{LARGE[0]}_{LARGE[1]}")
+    a_path, b_path = os.path.join(d, "a.sga"), os.path.join(d, "b.sga")
+    for path, m, seed, side in ((a_path, LARGE[0], LARGE_SEEDS[0], False),
+                                (b_path, LARGE[1], LARGE_SEEDS[1], True)):
+        build_large_fixture(device, path, m, seed, side)
+    spill_dir = os.path.join(d, "spill")
+    os.makedirs(spill_dir, exist_ok=True)
+    out = os.path.join(d, "merged_split.sga")
+    cells = {"large-walk-v": [],
+             "large-walk-spill": ["--device-blocks", str(LARGE_BLOCKS), "-r",
+                                  LARGE_BUDGET[0], "-m", LARGE_BUDGET[1],
+                                  "-d", spill_dir]}
+    result = {cell: [] for cell in cells}
+    for _ in range(passes):
+        for cell, extra in cells.items():
+            with search_split(device) as split:
+                rc, *_ = run_cli([a_path, b_path, out, "-i", "sga", "-o",
+                                  "sga", "--device", str(device), *extra])
+            if rc != 0 or len(split) != 1:
+                raise AssertionError(f"{cell}: exit {rc}, {len(split)} "
+                                     f"search phases")
+            result[cell].append(split[0])
+    os.remove(out)
+    return result
+
+
 def large_path(device) -> dict:
     """The two-input walk merge at bench.py's large scale: A of 2,000,000
     and B of 1,000,000 random 50 bp reads (bench.py's seeds; B with its
@@ -2501,7 +2620,8 @@ def large_path(device) -> dict:
         split_of = count_split(device) if name == "walk" \
             else contextlib.nullcontext(None)
         with spill_files_made() as spilled, \
-                indexes_built(device) as built, split_of as split:
+                indexes_built(device) as built, split_of as split, \
+                search_split(device) as searched:
             rc, std, err, counts, wall = run_cli(
                 [a_path, b_path, outs[name], *common, *extra])
         if rc != 0:
@@ -2530,6 +2650,9 @@ def large_path(device) -> dict:
                                      f"not {k1}")
             log(f"large walk -v, {CELL_PATTERNS} patterns, each count "
                 f"split: {json.dumps(split)}")
+        if name != "trie":
+            log(f"large merge {name}, its search split: "
+                f"{json.dumps(searched)}")
         phases = phase_times(err)
         merge_s = (phases.get("search (rank array)", 0)
                    + phases.get("merge (interleave)", 0))
@@ -2886,6 +3009,11 @@ def main() -> int:
     builds = build_all()
     log(f"build: kernels {builds['kernels_s']:.2f} s, native host library "
         f"{builds['native_s']:.2f} s")
+    if len(sys.argv) > 2 and sys.argv[1] == "--search-split":
+        # only the large walk merges' search phases, split: no result line
+        log(json.dumps({"search_split": search_splits(device,
+                                                      int(sys.argv[2]))}))
+        return 0
     count_pinned_blocks()
     with Fixtures() as fixtures:
         measure_copy_rate(device)

@@ -151,3 +151,72 @@ def test_fmi_device_index_is_cached_and_never_jax(tmp_path):
     assert not hasattr(f, "_device")      # the port's FMI has no JAX index
     f.invalidate()
     assert f.device_index("cpu") is not idx
+
+
+def _old_creads_consistent(creads, b):
+    """The sidecar's gate as it was before the native byte count and the
+    one-pass index: composition by np.bincount of a uint8 copy, then the
+    spot check with an index built by numpy passes (the JAX package's
+    SparseRankIndex.build, equal to the port's former eight passes)."""
+    from bwtmerge_tpu.ops.rank_np import SparseRankIndex
+
+    if creads.shape[1] != b.sequences():
+        return False
+    have = np.bincount(creads.reshape(-1).astype(np.uint8),
+                       minlength=8).astype(np.int64)
+    C = b.alpha.C.astype(np.int64)
+    if not np.array_equal(have[1:6], np.diff(C[:7])[1:]):
+        return False
+    r = creads.shape[1]
+    if r == 0:
+        return True
+    rank = SparseRankIndex.build(b.runs, b.alpha.sigma)
+    rng = np.random.default_rng((r << 16) ^ creads.shape[0])
+    lanes = np.unique(rng.integers(0, r, size=min(8, r)))
+    pos = lanes.astype(np.int64)
+    for t in range(creads.shape[0]):
+        rnk, sym = rank.inverse_select(pos)
+        if not np.array_equal(sym.astype(np.int64),
+                              creads[t, lanes].astype(np.int64)):
+            return False
+        pos = np.where(sym != 0, C[sym.astype(np.int64)] + rnk, pos)
+        if not (sym != 0).any():
+            break
+    return True
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_gate_rejects_a_changed_read_as_the_old_gate(tmp_path, seed, dtype):
+    """Each read of B's sidecar changed in turn, once with two of its
+    characters swapped (the composition stays right) and once with one
+    character replaced (it does not): the port's gate accepts or rejects
+    each exactly as the old gate and the JAX package's gate do.  int32
+    stands for an array attached from elsewhere than the layout."""
+    from bwtmerge_tpu.formats.sidecar import creads_layout
+
+    from bwtmerge_tpu_torch.models.merge import _creads_consistent
+
+    r = np.random.default_rng(seed)
+    seqs = oracle.random_collection(r, 24, 8, 30)
+    b_path = _write(tmp_path, "b", seqs, True)
+    pb, jb = port.load_fmi(b_path, "sga"), jax_fmi.load_fmi(b_path, "sga")
+    creads = creads_layout(np.array([s.size for s in seqs], np.uint32),
+                           np.concatenate(seqs).astype(np.uint8)).astype(dtype)
+    assert _creads_consistent(creads, pb) and _old_creads_consistent(
+        creads, pb)
+    seen = set()
+    for lane, s in enumerate(seqs):
+        i, j = 0, int(np.flatnonzero(s != s[0])[0])     # two distinct chars
+        t_i, t_j = s.size - 1 - i, s.size - 1 - j        # rows from the end
+        swapped, replaced = creads.copy(), creads.copy()
+        swapped[[t_i, t_j], lane] = creads[[t_j, t_i], lane]
+        replaced[t_i, lane] = s[j]
+        for changed in (swapped, replaced):
+            got = _creads_consistent(changed, pb)
+            assert got == _old_creads_consistent(changed, pb)
+            assert got == jax_merge._creads_consistent(changed, jb)
+            seen.add((changed is swapped, got))
+    # some swapped reads are sampled and rejected, some not; every
+    # replaced character fails the composition
+    assert seen == {(True, True), (True, False), (False, False)}

@@ -156,15 +156,14 @@ def test_device_counts_equal_sparse_rank_counts(tier, key):
 
 
 @pytest.mark.parametrize("stride", [1, 7, 4096])
-def test_sparse_rank_from_chunks_matches_build(tier, stride, monkeypatch):
+def test_sparse_rank_from_chunks_matches_build(tier, stride):
     """The bench's host index (uint32 run lengths, built from the chunk
-    stream slab by slab) answers as SparseRankIndex.build over the run
-    arrays does, at strides that do and do not divide the slabs."""
+    stream) answers as SparseRankIndex.build over the run arrays does, at
+    strides that do and do not divide the chunks."""
     from bwtmerge_tpu_torch.formats import read_bwt
     from bwtmerge_tpu_torch.formats.streaming_read import read_bwt_chunks
     from bwtmerge_tpu_torch.ops.rank_np import SparseRankIndex
 
-    monkeypatch.setattr(SparseRankIndex, "SLAB_RUNS", 1000)
     path = tier["port"]["fold_3way"]
     runs = read_bwt(path, "native")[0]
     want = SparseRankIndex.build(runs, 6, stride)
