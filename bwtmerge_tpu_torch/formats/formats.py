@@ -149,6 +149,10 @@ class _RopeBase:
     """
 
     MAX_RUN = 31
+    # a code byte's layout, (sym_shift, sym_mask, len_shift, len_mask):
+    # sym = (code >> sym_shift) & sym_mask, len = (code >> len_shift) &
+    # len_mask (the native reader's, native.RopeRuns)
+    CODE: Tuple[int, int, int, int]
 
     @staticmethod
     def order() -> AlphabeticOrder:
@@ -190,6 +194,7 @@ class RopeFormat(_RopeBase):
 
     name = "RopeBWT format"
     tag = "ropebwt"
+    CODE = (0, 0x07, 3, 0x1F)
 
     @classmethod
     def _decode_codes(cls, codes):
@@ -221,6 +226,7 @@ class SGAFormat(_RopeBase):
 
     name = "SGA format"
     tag = "sga"
+    CODE = (5, 0x07, 0, 0x1F)
 
     @classmethod
     def _decode_codes(cls, codes):

@@ -195,20 +195,28 @@ class StreamingSGAWriter:
     def __init__(self, path: str):
         self.f = open(path, "wb")
         self.f.write(b"\x00" * SGAHeader.SIZE)
-        self._state = np.zeros(1, dtype=np.int64)  # global RLE byte offset
+        # {global RLE byte offset, bases, sequences}, the last two summed
+        # by the native kernel in its pass over each chunk
+        self._state = np.zeros(3, dtype=np.int64)
         self._codes = np.empty(1 << 20, dtype=np.uint8)
         self.n_codes = 0
-        self.bases = 0
-        self.sequences = 0
         self._closed = False
+
+    @property
+    def bases(self) -> int:
+        return int(self._state[1])
+
+    @property
+    def sequences(self) -> int:
+        return int(self._state[2])
 
     def write_chunk(self, syms: np.ndarray, lens: np.ndarray) -> None:
         if syms.size == 0:
             return
-        from ..native import sga_stream_chunk
+        from ..native import sga_stream_chunk_totals
 
         while True:
-            n = sga_stream_chunk(syms, lens, self._state, self._codes)
+            n = sga_stream_chunk_totals(syms, lens, self._state, self._codes)
             if n != -2:
                 break
             est = int(np.sum(lens, dtype=np.int64)) // 31 + 2 * syms.size + 1024
@@ -216,10 +224,7 @@ class StreamingSGAWriter:
         if n < 0:
             raise RuntimeError(f"sga_stream_chunk failed (code {n})")
         self.f.write(self._codes[:n])
-
         self.n_codes += n
-        self.bases += int(np.sum(lens, dtype=np.int64))
-        self.sequences += int(np.sum(lens[syms == 0], dtype=np.int64))
 
     def close(self) -> None:
         if self._closed:

@@ -9,7 +9,10 @@ next chunk proves it complete — the RunBuffer discipline, utils.h:121-142).
 
 `read_bwt_chunks(path, fmt)` is the streaming entry point; the batch readers
 in formats.py are built on top of it, so loading any format costs O(chunk)
-transient memory plus the final run arrays.
+transient memory plus the final run arrays.  RopeBWT and SGA codes go
+through one native routine (native.RopeRuns) both ways: chunk by chunk, or
+over the whole payload at once with the chunk seams kept, so that the
+batch read is the chunk stream's concatenation.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Iterator, Tuple
 import numpy as np
 
 from ..models.runs import RunArrays, SIGMA
-from ..native import rle_decode
+from ..native import RopeRuns, rle_decode
 from ..utils.alphabet import Alphabet, create_alphabet
 from . import codec
 from .headers import NativeHeader, RopeHeader, SGAHeader
@@ -106,27 +109,56 @@ def _plain_chunks(path: str, fmt_cls, chunk_bytes: int) -> Iterator[RunChunk]:
             _file_chunks(f, total, chunk_bytes), lambda v: c2c[v]))
 
 
+def _rope_payload(f, path: str, fmt_cls) -> int:
+    """Read and check the header of a RopeBWT or SGA file open at `f`:
+    the payload's length in bytes, `f` at its start."""
+    if fmt_cls.tag == "sga":
+        header = SGAHeader.from_bytes(f.read(SGAHeader.SIZE))
+        if not header.check():
+            raise ValueError(f"{path}: invalid SGA header")
+        return header.bytes_
+    header = RopeHeader.from_bytes(f.read(RopeHeader.SIZE))
+    if not header.check():
+        raise ValueError(f"{path}: invalid RopeBWT header")
+    f.seek(0, 2)
+    total = f.tell() - RopeHeader.SIZE
+    f.seek(RopeHeader.SIZE)
+    return total
+
+
 def _rope_chunks(path: str, fmt_cls, chunk_bytes: int) -> Iterator[RunChunk]:
+    # each file chunk's codes decoded and coalesced in one native pass,
+    # the trailing run held across chunks (native.RopeRuns)
     with open(path, "rb") as f:
-        if fmt_cls.tag == "sga":
-            header = SGAHeader.from_bytes(f.read(SGAHeader.SIZE))
-            if not header.check():
-                raise ValueError(f"{path}: invalid SGA header")
-            total = header.bytes_
-        else:
-            header = RopeHeader.from_bytes(f.read(RopeHeader.SIZE))
-            if not header.check():
-                raise ValueError(f"{path}: invalid RopeBWT header")
-            f.seek(0, 2)
-            total = f.tell() - RopeHeader.SIZE
-            f.seek(RopeHeader.SIZE)
+        total = _rope_payload(f, path, fmt_cls)
+        decoder = RopeRuns(*fmt_cls.CODE)
+        for codes in _file_chunks(f, total, chunk_bytes):
+            syms, lens = decoder.codes(codes)
+            if syms.size:
+                yield syms, lens
+        syms, lens = decoder.finish()
+        if syms.size:
+            yield syms, lens
 
-        def fragments():
-            for codes in _file_chunks(f, total, chunk_bytes):
-                syms, lens = fmt_cls._decode_codes(codes)
-                yield syms, lens.astype(np.int64)
 
-        yield from _coalesce(fragments())
+def _rope_runs(path: str, fmt_cls, chunk_bytes: int):
+    """(RunArrays, counts) of a RopeBWT or SGA file, the concatenation of
+    its chunk stream in chunks of `chunk_bytes`: the payload read once,
+    its runs counted in one native pass and written in a second into
+    arrays of their exact size."""
+    with open(path, "rb") as f:
+        total = _rope_payload(f, path, fmt_cls)
+        codes = np.empty(total, np.uint8)
+        got = f.readinto(codes)
+        if got < total:
+            raise ValueError("file truncated: "
+                             f"{total - got} payload bytes missing")
+    decoder = RopeRuns(*fmt_cls.CODE)
+    syms, lens = decoder.fill(codes, chunk_bytes, finish=True)
+    if decoder.seen >> SIGMA:
+        raise IndexError(f"{path}: symbol {decoder.seen.bit_length() - 1} "
+                         f"past the alphabet's {SIGMA}")
+    return RunArrays(syms, lens), decoder.counts[:SIGMA].copy()
 
 
 def _native_chunks(path: str, chunk_bytes: int) -> Iterator[RunChunk]:
@@ -190,20 +222,25 @@ def read_bwt_streaming(path: str, fmt: str,
     """Batch read built on the chunk stream: (RunArrays, counts, Alphabet).
 
     Peak transient memory is the run arrays plus one chunk — never the raw
-    file plus the decoded text (the old readers' profile).
+    file plus the decoded text (the old readers' profile); for RopeBWT and
+    SGA, the run arrays plus the payload's codes, one byte a code.
     """
-    parts_s, parts_l = [], []
-    counts = np.zeros(SIGMA, dtype=np.int64)
-    for syms, lens in read_bwt_chunks(path, fmt, chunk_bytes):
-        parts_s.append(syms)
-        parts_l.append(lens)
-        np.add.at(counts, syms, lens)
-    if parts_s:
-        runs = RunArrays(np.concatenate(parts_s), np.concatenate(parts_l))
-    else:
-        runs = RunArrays.empty()
-
     from .formats import FORMATS
+
+    if fmt in ("sga", "ropebwt"):
+        runs, counts = _rope_runs(path, FORMATS[fmt], chunk_bytes)
+    else:
+        parts_s, parts_l = [], []
+        counts = np.zeros(SIGMA, dtype=np.int64)
+        for syms, lens in read_bwt_chunks(path, fmt, chunk_bytes):
+            parts_s.append(syms)
+            parts_l.append(lens)
+            np.add.at(counts, syms, lens)
+        if parts_s:
+            runs = RunArrays(np.concatenate(parts_s),
+                             np.concatenate(parts_l))
+        else:
+            runs = RunArrays.empty()
 
     if fmt == "native":
         alpha = read_native_tail(path)

@@ -19,11 +19,14 @@ from .api import (  # noqa: F401
     ra_decode_q4_chunk,
     ra_encode,
     ra_merge_pair,
+    RopeRuns,
     rle_decode,
     rle_encode,
     rle_encode_at,
     rle_hash,
     run_block_sums,
+    run_sym_sums,
     sga_stream_chunk,
+    sga_stream_chunk_totals,
 )
 from .build import load_library  # noqa: F401

@@ -507,6 +507,12 @@ def _configure_stream_writers(lib) -> None:
         _u8p, _i32p, ctypes.c_int64, _i64p,
         _u8p, ctypes.c_int64, _i64p, _i64p, _i64p, ctypes.c_int64,
     ]
+    for name, lens_p in (("sga_stream_chunk_totals", _i64p),
+                         ("sga_stream_chunk_totals32", _i32p)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [_u8p, lens_p, ctypes.c_int64, _i64p, _u8p,
+                       ctypes.c_int64]
     lib.fragment_phase_table.restype = ctypes.c_int64
     lib.fragment_phase_table.argtypes = [_u8p, _i64p, ctypes.c_int64, _i64p]
     lib._bwtmerge_writer_configured = True
@@ -527,6 +533,25 @@ def sga_stream_chunk(syms, lens, state: np.ndarray, out: np.ndarray) -> int:
             state, out, out.size))
     return int(lib.sga_stream_chunk(_as_u8(syms), _as_i64(lens), len(syms),
                                     state, out, out.size))
+
+
+def sga_stream_chunk_totals(syms, lens, state: np.ndarray,
+                            out: np.ndarray) -> int:
+    """sga_stream_chunk with state = int64[3] {RLE byte offset, bases,
+    sequences}: on success the chunk's bases (its lengths' sum) and
+    sequences (the lengths of its symbol 0) are added into state[1] and
+    state[2] in the same pass."""
+    if state.dtype != np.int64 or state.size < 3:
+        raise ValueError("sga_stream_chunk_totals: state must be int64[3]")
+    lib = _lib()
+    _configure_stream_writers(lib)
+    lens = np.asarray(lens)
+    if lens.dtype == np.int32:
+        return int(lib.sga_stream_chunk_totals32(
+            _as_u8(syms), np.ascontiguousarray(lens), len(syms),
+            state, out, out.size))
+    return int(lib.sga_stream_chunk_totals(
+        _as_u8(syms), _as_i64(lens), len(syms), state, out, out.size))
 
 
 def native_stream_chunk(syms, lens, state: np.ndarray, rle: np.ndarray,
@@ -609,6 +634,15 @@ def _configure_run_sums(lib) -> None:
                        ctypes.c_int64, _i64p, _i64p]
     lib.byte_counts.restype = None
     lib.byte_counts.argtypes = [_u8p, ctypes.c_int64, _i64p]
+    lib.run_sym_sums.restype = ctypes.c_int64
+    lib.run_sym_sums.argtypes = [_u8p, _i64p, ctypes.c_int64, _i64p]
+    layout = [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+              _i64p]
+    lib.rope_runs_count.restype = ctypes.c_int64
+    lib.rope_runs_count.argtypes = layout
+    lib.rope_runs_fill.restype = ctypes.c_int64
+    lib.rope_runs_fill.argtypes = layout + [_u8p, _i64p, _i64p]
     lib._bwtmerge_run_sums_configured = True
 
 
@@ -650,3 +684,69 @@ def byte_counts(data) -> np.ndarray:
     out = np.empty(256, np.int64)
     lib.byte_counts(data.reshape(-1).view(np.uint8), data.size, out)
     return out
+
+
+def run_sym_sums(syms, lens, sigma: int) -> np.ndarray:
+    """int64[max(sigma, top + 1)], top the largest symbol: the lengths of
+    the runs of each symbol summed exactly in one pass (what
+    np.bincount(syms, weights=lens, minlength=sigma) sums in float64)."""
+    syms, lens = _as_u8(syms), _as_i64(lens)
+    if lens.size != syms.size:
+        raise ValueError("run_sym_sums: syms and lens differ in length")
+    lib = _lib()
+    _configure_run_sums(lib)
+    out = np.zeros(max(256, sigma), np.int64)
+    top = int(lib.run_sym_sums(syms, lens, syms.size, out))
+    return out[:max(sigma, top)]
+
+
+class RopeRuns:
+    """The rope family's code bytes as the streaming reader's runs
+    (codec.cpp rope_runs_count and rope_runs_fill): `codes(data)` takes
+    the next file chunk and `finish()` the held run at the end; `fill`
+    takes many chunks of `seam` bytes at once.  A code is read as `sym =
+    (code >> sym_shift) & sym_mask`, `len = (code >> len_shift) &
+    len_mask`.  `counts` (int64[8]) adds up each symbol's emitted lengths
+    and `seen` is the mask of the symbols emitted."""
+
+    def __init__(self, sym_shift: int, sym_mask: int, len_shift: int,
+                 len_mask: int):
+        self._code = (sym_shift, sym_mask, len_shift, len_mask)
+        self._state = np.array([-1, 0, 0], np.int64)
+        self.counts = np.zeros(8, np.int64)
+        self._lib = _lib()
+        _configure_run_sums(self._lib)
+
+    @property
+    def seen(self) -> int:
+        return int(self._state[2])
+
+    def _checked(self, n: int, seam: int) -> int:
+        if n < 0:
+            raise ValueError(f"rope_runs: seam {seam} or code layout "
+                             f"{self._code} out of range")
+        return n
+
+    def fill(self, data, seam: int, finish: bool = False
+             ) -> Tuple[np.ndarray, np.ndarray]:
+        """(syms uint8, lens int64) of the runs that chunks of `seam` bytes
+        of `data` complete (and the held run with `finish`): counted in
+        one native pass, then written at their exact size in a second."""
+        data = _as_u8(data)
+        args = (data, data.size, seam, *self._code, int(finish))
+        n = self._checked(self._lib.rope_runs_count(*args, self._state), seam)
+        syms = np.empty(n, np.uint8)
+        lens = np.empty(n, np.int64)
+        got = self._lib.rope_runs_fill(*args, self._state, syms, lens,
+                                       self.counts)
+        if self._checked(got, seam) != n:
+            raise RuntimeError("rope_runs: fill emitted another count")
+        return syms, lens
+
+    def codes(self, data) -> Tuple[np.ndarray, np.ndarray]:
+        """The runs that one file chunk completes."""
+        return self.fill(data, max(len(data), 1))
+
+    def finish(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The held run, where it is not empty."""
+        return self.fill(np.zeros(0, np.uint8), 1, finish=True)

@@ -233,3 +233,122 @@ EXPORT void byte_counts(const uint8_t* data, int64_t n, int64_t* counts) {
   for (int v = 0; v < 256; v++)
     counts[v] = part[0][v] + part[1][v] + part[2][v] + part[3][v];
 }
+
+// The rope family's codes (SGA comp<<5 | len, RopeBWT len<<3 | comp) as
+// the runs that the streaming reader yields (formats/streaming_read.py),
+// in one pass.  The codes are read in file chunks of `seam` bytes, and
+// runs are coalesced across codes and chunks, with the reader's rule for
+// zero-length codes: one inside a chunk stays a run of its own, while a
+// zero-length run held at a chunk's end is dropped, and so is one at the
+// end.  state = int64[3] {held symbol or -1, held length, mask of the
+// symbols emitted} carries the trailing run from call to call; each call
+// starts a chunk; `finish` emits the held run.  A code is read as sym =
+// (code >> sym_shift) & sym_mask, len = (code >> len_shift) & len_mask.
+// rope_runs_count returns the runs that rope_runs_fill would emit and
+// changes nothing; rope_runs_fill writes them into syms/lens, updates
+// state and, when counts is not null, adds each symbol's length into
+// counts[8].  Both return -1 for a seam below 1 or a layout out of range.
+namespace {
+
+struct RopeCode {
+  uint8_t sym_of[256], len_of[256];
+  bool ok;
+  RopeCode(int64_t sym_shift, int64_t sym_mask, int64_t len_shift,
+           int64_t len_mask) {
+    ok = sym_shift >= 0 && sym_shift <= 7 && sym_mask >= 0 && sym_mask <= 7 &&
+         len_shift >= 0 && len_shift <= 7 && len_mask >= 0 && len_mask <= 255;
+    for (int v = 0; v < 256; v++) {
+      sym_of[v] = static_cast<uint8_t>((v >> (sym_shift & 7)) & sym_mask);
+      len_of[v] = static_cast<uint8_t>((v >> (len_shift & 7)) & len_mask);
+    }
+  }
+};
+
+template <bool FILL>
+int64_t rope_runs_impl(const uint8_t* codes, int64_t n, int64_t seam,
+                       const RopeCode& code, int64_t finish, int64_t* state,
+                       uint8_t* syms, int64_t* lens, int64_t* counts) {
+  if (seam < 1 || !code.ok) return -1;
+  int64_t cs = state[0], cl = state[1], seen = state[2];
+  int64_t acc[8] = {};
+  int64_t r = 0;
+  auto emit = [&](int64_t s, int64_t l) {
+    if (FILL) {
+      syms[r] = static_cast<uint8_t>(s);
+      lens[r] = l;
+      acc[s] += l;
+      seen |= int64_t(1) << s;
+    }
+    r++;
+  };
+  for (int64_t start = 0; start < n; start += seam) {
+    if (cl == 0) cs = -1;  // a zero-length run held at a seam is dropped
+    const int64_t end = n - start > seam ? start + seam : n;
+    for (int64_t i = start; i < end; i++) {
+      const int64_t s = code.sym_of[codes[i]];
+      const int64_t l = code.len_of[codes[i]];
+      if (s == cs) {
+        cl += l;
+        continue;
+      }
+      if (cs >= 0) emit(cs, cl);
+      cs = s;
+      cl = l;
+    }
+  }
+  if (finish) {
+    if (cs >= 0 && cl > 0) emit(cs, cl);
+    cs = -1;
+    cl = 0;
+  }
+  if (FILL) {
+    state[0] = cs;
+    state[1] = cl;
+    state[2] = seen;
+    if (counts)
+      for (int k = 0; k < 8; k++) counts[k] += acc[k];
+  }
+  return r;
+}
+
+}  // namespace
+
+EXPORT int64_t rope_runs_count(const uint8_t* codes, int64_t n, int64_t seam,
+                               int64_t sym_shift, int64_t sym_mask,
+                               int64_t len_shift, int64_t len_mask,
+                               int64_t finish, const int64_t* state) {
+  int64_t st[3] = {state[0], state[1], state[2]};
+  return rope_runs_impl<false>(
+      codes, n, seam, RopeCode(sym_shift, sym_mask, len_shift, len_mask),
+      finish, st, nullptr, nullptr, nullptr);
+}
+
+EXPORT int64_t rope_runs_fill(const uint8_t* codes, int64_t n, int64_t seam,
+                              int64_t sym_shift, int64_t sym_mask,
+                              int64_t len_shift, int64_t len_mask,
+                              int64_t finish, int64_t* state, uint8_t* syms,
+                              int64_t* lens, int64_t* counts) {
+  return rope_runs_impl<true>(
+      codes, n, seam, RopeCode(sym_shift, sym_mask, len_shift, len_mask),
+      finish, state, syms, lens, counts);
+}
+// The lengths of the runs of each symbol value, exact: out[256].  Four
+// tables in turn, so that runs of one symbol two apart do not chain their
+// stores.  Returns one more than the largest symbol, 0 for no runs.
+EXPORT int64_t run_sym_sums(const uint8_t* syms, const int64_t* lens,
+                            int64_t n, int64_t* out) {
+  int64_t part[4][256] = {};
+  uint8_t top = 0;
+  int64_t i = 0;
+  for (; i + 4 <= n; i += 4) {
+    part[0][syms[i]] += lens[i];
+    part[1][syms[i + 1]] += lens[i + 1];
+    part[2][syms[i + 2]] += lens[i + 2];
+    part[3][syms[i + 3]] += lens[i + 3];
+  }
+  for (; i < n; i++) part[0][syms[i]] += lens[i];
+  for (int64_t j = 0; j < n; j++) top = syms[j] > top ? syms[j] : top;
+  for (int v = 0; v < 256; v++)
+    out[v] = part[0][v] + part[1][v] + part[2][v] + part[3][v];
+  return n ? int64_t(top) + 1 : 0;
+}

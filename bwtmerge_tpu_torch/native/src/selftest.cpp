@@ -44,6 +44,16 @@ int64_t interleave_chunk(const uint8_t*, const int64_t*, int64_t,
                          const uint8_t*, const int64_t*, int64_t,
                          const int64_t*, const int64_t*, int64_t, int64_t,
                          int64_t, int64_t*, uint8_t*, int64_t*);
+int64_t rope_runs_count(const uint8_t*, int64_t, int64_t, int64_t, int64_t,
+                        int64_t, int64_t, int64_t, const int64_t*);
+int64_t rope_runs_fill(const uint8_t*, int64_t, int64_t, int64_t, int64_t,
+                       int64_t, int64_t, int64_t, int64_t*, uint8_t*,
+                       int64_t*, int64_t*);
+int64_t run_sym_sums(const uint8_t*, const int64_t*, int64_t, int64_t*);
+int64_t sga_stream_chunk(const uint8_t*, const int64_t*, int64_t, int64_t*,
+                         uint8_t*, int64_t);
+int64_t sga_stream_chunk_totals(const uint8_t*, const int64_t*, int64_t,
+                                int64_t*, uint8_t*, int64_t);
 }
 
 namespace {
@@ -208,6 +218,94 @@ void test_interleave() {
                          state, tiny_s.data(), tiny_l.data()) == -2);
 }
 
+// rope_runs over the whole payload at once (seams every `seam` bytes)
+// must give the runs of one call a chunk, in buffers of exactly the size
+// its count pass asked for; the counts sum every code's length.
+void test_rope_runs() {
+  for (int64_t n : {0, 1, 2, 31, 64, 1000}) {
+    std::vector<uint8_t> codes(n);
+    std::vector<int64_t> want(8, 0);
+    for (auto& c : codes) {
+      uint8_t s = static_cast<uint8_t>(rng() % 3);
+      uint8_t l = rng() % 4 ? static_cast<uint8_t>(rng() % 32) : 0;
+      c = static_cast<uint8_t>((s << 5) | l);
+      want[s] += l;
+    }
+    for (int64_t seam : {1, 3, 64, 1 << 20}) {
+      int64_t st[3] = {-1, 0, 0};
+      int64_t m = rope_runs_count(codes.data(), n, seam, 5, 7, 0, 31, 1, st);
+      CHECK(m >= 0 && st[0] == -1);
+      std::vector<uint8_t> syms(m);
+      std::vector<int64_t> lens(m), counts(8, 0);
+      CHECK(rope_runs_fill(codes.data(), n, seam, 5, 7, 0, 31, 1, st,
+                           syms.data(), lens.data(), counts.data()) == m);
+      CHECK(counts == want && st[0] == -1 && st[1] == 0);
+
+      std::vector<uint8_t> cs;
+      std::vector<int64_t> cl;
+      int64_t ct[3] = {-1, 0, 0};
+      for (int64_t at = 0; at <= n; at += seam) {
+        const int64_t k = n - at < seam ? n - at : seam;
+        const int64_t fin = at + seam > n;
+        const int64_t step = k ? k : 1;
+        int64_t got = rope_runs_count(codes.data() + at, k, step, 5, 7, 0, 31,
+                                      fin, ct);
+        std::vector<uint8_t> s(got);
+        std::vector<int64_t> l(got);
+        CHECK(rope_runs_fill(codes.data() + at, k, step, 5, 7, 0, 31, fin, ct,
+                             s.data(), l.data(), nullptr) == got);
+        cs.insert(cs.end(), s.begin(), s.end());
+        cl.insert(cl.end(), l.begin(), l.end());
+      }
+      CHECK(cs == syms && cl == lens);
+    }
+  }
+  int64_t st[3] = {-1, 0, 0};
+  uint8_t code = 0;
+  CHECK(rope_runs_count(&code, 1, 0, 5, 7, 0, 31, 1, st) == -1);
+  CHECK(rope_runs_fill(&code, 1, 1, 5, 8, 0, 31, 1, st, &code, st,
+                       nullptr) == -1);
+  CHECK(st[0] == -1 && st[1] == 0 && st[2] == 0);
+}
+
+void test_run_sym_sums() {
+  for (int64_t n : {0, 1, 5, 1000}) {
+    Runs r = random_runs(n, 1 << 20);
+    std::vector<int64_t> want(256, 0), got(256);
+    int64_t top = 0;
+    for (int64_t i = 0; i < n; i++) {
+      want[r.syms[i]] += r.lens[i];
+      if (r.syms[i] + 1 > top) top = r.syms[i] + 1;
+    }
+    CHECK(run_sym_sums(r.syms.data(), r.lens.data(), n, got.data()) == top);
+    CHECK(got == want);
+  }
+}
+
+// sga_stream_chunk_totals writes sga_stream_chunk's codes and adds the
+// bases and sequences; a buffer too small leaves the state as it was.
+void test_sga_totals() {
+  Runs r = random_runs(500, 200);
+  int64_t n = r.syms.size(), bases = 0, seqs = 0;
+  for (int64_t i = 0; i < n; i++) {
+    bases += r.lens[i];
+    if (r.syms[i] == 0) seqs += r.lens[i];
+  }
+  std::vector<uint8_t> a(n * 16), b(n * 16);
+  int64_t sa[1] = {7}, sb[3] = {7, 100, 10};
+  int64_t na = sga_stream_chunk(r.syms.data(), r.lens.data(), n, sa, a.data(),
+                                a.size());
+  CHECK(na > 0);
+  CHECK(sga_stream_chunk_totals(r.syms.data(), r.lens.data(), n, sb, b.data(),
+                                b.size()) == na);
+  CHECK(std::memcmp(a.data(), b.data(), na) == 0);
+  CHECK(sb[0] == sa[0] && sb[1] == 100 + bases && sb[2] == 10 + seqs);
+  int64_t sc[3] = {7, 1, 2};
+  CHECK(sga_stream_chunk_totals(r.syms.data(), r.lens.data(), n, sc, b.data(),
+                                na - 1) == -2);
+  CHECK(sc[0] == 7 && sc[1] == 1 && sc[2] == 2);
+}
+
 }  // namespace
 
 int main() {
@@ -215,6 +313,9 @@ int main() {
   test_rle_chunked_resume();
   test_ra_codec();
   test_interleave();
+  test_rope_runs();
+  test_run_sym_sums();
+  test_sga_totals();
   std::puts("native selftest: OK");
   return 0;
 }

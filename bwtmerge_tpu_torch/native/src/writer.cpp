@@ -98,15 +98,22 @@ inline bool walk_stored(const uint8_t* syms, const LenT* lens, int64_t n,
 // (state unchanged; caller grows `out` and retries).
 namespace {
 
-template <typename LenT>
+// TOTALS: state[1] and state[2] also add the chunk's bases and sequences
+// (the lengths of all runs and of the runs of symbol 0).
+template <typename LenT, bool TOTALS = false>
 int64_t sga_chunk_impl(const uint8_t* syms, const LenT* lens,
                        int64_t n, int64_t* state, uint8_t* out,
                        int64_t cap) {
   int64_t pos = state[0];
   int64_t n_codes = 0;
+  int64_t bases = 0, sequences = 0;
   bool ok = walk_stored(
       syms, lens, n, &pos,
       [&](uint8_t c, int64_t stored_len, int64_t) {
+        if (TOTALS) {
+          bases += stored_len;
+          if (c == 0) sequences += stored_len;
+        }
         int64_t full = (stored_len + SGA_MAX_RUN - 1) / SGA_MAX_RUN;
         if (n_codes + full > cap) return false;
         uint8_t full_code =
@@ -119,6 +126,10 @@ int64_t sga_chunk_impl(const uint8_t* syms, const LenT* lens,
       [](int64_t, uint8_t) { return true; });  // bytes not materialized
   if (!ok) return -2;
   state[0] = pos;
+  if (TOTALS) {
+    state[1] += bases;
+    state[2] += sequences;
+  }
   return n_codes;
 }
 
@@ -227,6 +238,22 @@ EXPORT int64_t sga_stream_chunk32(const uint8_t* syms, const int32_t* lens,
                                   int64_t n, int64_t* state, uint8_t* out,
                                   int64_t cap) {
   return sga_chunk_impl<int32_t>(syms, lens, n, state, out, cap);
+}
+
+// sga_stream_chunk that also adds the chunk's bases and sequences into
+// state[1] and state[2] (state = int64[3]), on success only.
+EXPORT int64_t sga_stream_chunk_totals(const uint8_t* syms,
+                                       const int64_t* lens, int64_t n,
+                                       int64_t* state, uint8_t* out,
+                                       int64_t cap) {
+  return sga_chunk_impl<int64_t, true>(syms, lens, n, state, out, cap);
+}
+
+EXPORT int64_t sga_stream_chunk_totals32(const uint8_t* syms,
+                                         const int32_t* lens, int64_t n,
+                                         int64_t* state, uint8_t* out,
+                                         int64_t cap) {
+  return sga_chunk_impl<int32_t, true>(syms, lens, n, state, out, cap);
 }
 
 EXPORT int64_t native_stream_chunk(const uint8_t* syms, const int64_t* lens,

@@ -4,6 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --search-split N   # only the large walk merges'
                                              # search phases, N times each
+    python3 chip_smoke.py --pass-split N     # only large-walk-v's and
+                                             # large-trie's passes, split,
+                                             # N times each
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -109,7 +112,11 @@ Then bench.py's large scale and the record build at the layout's limit:
     the large A's
     table by rec_build and by build_rec_plain: time and the peak of
     device memory above the nibbles; the large B's decode rows by
-    decode_rows_build against its plain version, timed;
+    decode_rows_build against its plain version, timed.  Then one pass
+    each of large-walk-v and large-trie without -v (the bench's
+    arguments), split by pass_split: A's and B's loads, the search, merge
+    and index build phases, the run counts inside write_bwt, the SGA
+    writer and the rest;
 13c. rec_build at 2^31 - 2 random positions (the largest index the int32
     layout takes), checked without the plain version's scan: row 0 is the
     base, neighbouring rows differ by the block counts and the packed
@@ -2570,6 +2577,130 @@ def search_splits(device, passes: int) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def pass_split(device):
+    """Within the block, each pass of the merge CLI (bwt_merge.main) is
+    split into its parts, on the host clock, each part ending in a
+    synchronize: load_fmi of A and of B, the merge's phases as its
+    PhaseTimer names them (search, merge, index build), RunArrays.counts
+    inside write_bwt, the SGA writer (SGAFormat.write), and rest_s, the
+    pass less its parts.  Yields the list of {part_s: seconds, pass_s},
+    one a pass."""
+    import torch
+
+    from bwtmerge_tpu_torch import formats
+    from bwtmerge_tpu_torch.cli import bwt_merge
+    from bwtmerge_tpu_torch.models.runs import RunArrays
+    from bwtmerge_tpu_torch.utils.metrics import PhaseTimer
+
+    splits = []
+    open_ = []                   # the pass being split, if any
+    writing = []                 # inside write_bwt
+    phase_keys = {"search (rank array)": "search_s",
+                  "merge (interleave)": "merge_s",
+                  "index build": "index_build_s"}
+
+    def add(key, t0):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if open_:
+            key = key() if callable(key) else key
+            open_[0][key] = open_[0].get(key, 0.0) + time.monotonic() - t0
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kw)
+            finally:
+                add(key, t0)
+        return run
+
+    def loads():
+        return "load_b_s" if "load_a_s" in open_[0] else "load_a_s"
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        t0 = time.monotonic()
+        try:
+            with plain["phase"](self, name):
+                yield
+        finally:
+            add(phase_keys.get(name, name), t0)
+
+    def counts(self, *args, **kw):
+        if not writing:
+            return plain["counts"](self, *args, **kw)
+        return timed("counts_s", plain["counts"])(self, *args, **kw)
+
+    def write_bwt(*args, **kw):
+        writing.append(True)
+        try:
+            return plain["write_bwt"](*args, **kw)
+        finally:
+            writing.pop()
+
+    def main(*args, **kw):
+        open_.append({})
+        try:
+            return timed("pass_s", plain["main"])(*args, **kw)
+        finally:
+            part = open_.pop()
+            part["rest_s"] = part["pass_s"] - sum(
+                v for k, v in part.items() if k != "pass_s")
+            splits.append(part)
+
+    sga = formats.SGAFormat
+    plain = {"main": bwt_merge.main, "load_fmi": bwt_merge.load_fmi,
+             "phase": PhaseTimer.phase, "counts": RunArrays.counts,
+             "write_bwt": formats.write_bwt,
+             "sga_write": sga.__dict__["write"]}
+    bwt_merge.main = main
+    bwt_merge.load_fmi = timed(loads, plain["load_fmi"])
+    PhaseTimer.phase = phase
+    RunArrays.counts = counts
+    formats.write_bwt = write_bwt
+    sga.write = classmethod(timed("sga_write_s",
+                                  plain["sga_write"].__func__))
+    try:
+        yield splits
+    finally:
+        bwt_merge.main, bwt_merge.load_fmi = plain["main"], plain["load_fmi"]
+        PhaseTimer.phase, RunArrays.counts = plain["phase"], plain["counts"]
+        formats.write_bwt = plain["write_bwt"]
+        sga.write = plain["sga_write"]
+
+
+def pass_splits(device, passes: int) -> dict:
+    """large-walk-v's and large-trie's passes without -v (the bench's own
+    arguments, bench.CELLS) over the large pair, in turns, `passes` times
+    each, every pass split by pass_split: {cell: [split, ...]}."""
+    from bwtmerge_tpu_torch.bench import CELLS
+
+    d = os.path.join(CACHE, f"large_{LARGE[0]}_{LARGE[1]}")
+    a_path, b_path = os.path.join(d, "a.sga"), os.path.join(d, "b.sga")
+    for path, m, seed, side in ((a_path, LARGE[0], LARGE_SEEDS[0], False),
+                                (b_path, LARGE[1], LARGE_SEEDS[1], True)):
+        build_large_fixture(device, path, m, seed, side)
+    spill_dir = os.path.join(d, "spill")
+    os.makedirs(spill_dir, exist_ok=True)
+    out = os.path.join(d, "merged_pass_split.sga")
+    cells = ("large-walk-v", "large-trie")
+    result = {cell: [] for cell in cells}
+    for _ in range(passes):
+        for cell in cells:
+            with pass_split(device) as split:
+                rc, *_ = run_cli([a_path, b_path, out, "-i", "sga", "-o",
+                                  "sga", "--device", str(device), "-d",
+                                  spill_dir, *CELLS[cell].args])
+            if rc != 0 or len(split) != 1 or "load_b_s" not in split[0]:
+                raise AssertionError(f"{cell}: exit {rc}, split {split}")
+            result[cell].append(split[0])
+            log(f"{cell}, a pass split: {json.dumps(split[0])}")
+    os.remove(out)
+    return result
+
+
 def large_path(device) -> dict:
     """The two-input walk merge at bench.py's large scale: A of 2,000,000
     and B of 1,000,000 random 50 bp reads (bench.py's seeds; B with its
@@ -3014,6 +3145,11 @@ def main() -> int:
         log(json.dumps({"search_split": search_splits(device,
                                                       int(sys.argv[2]))}))
         return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "--pass-split":
+        # only the large pair's passes, split: no result line
+        log(json.dumps({"pass_split": pass_splits(device,
+                                                  int(sys.argv[2]))}))
+        return 0
     count_pinned_blocks()
     with Fixtures() as fixtures:
         measure_copy_rate(device)
@@ -3043,6 +3179,7 @@ def main() -> int:
         large = large_path(device)
         for key in ("spilled_walk_v", "walk", "trie"):
             paths[f"large_{key}"] = large[key]
+        log(json.dumps({"pass_split": pass_splits(device, 1)}))
         rec_build_near_limit(device)
         # the xlarge tier's 3-way fold, its base cut to three folds
         parts, xl_checks = xlarge(device)
