@@ -17,6 +17,7 @@ batch read is the chunk stream's concatenation.
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Iterator, Tuple
 
@@ -145,9 +146,14 @@ def _rope_runs(path: str, fmt_cls, chunk_bytes: int):
     """(RunArrays, counts) of a RopeBWT or SGA file, the concatenation of
     its chunk stream in chunks of `chunk_bytes`: the payload read once,
     its runs counted in one native pass and written in a second into
-    arrays of their exact size."""
+    arrays of their exact size.  A header that claims more codes than the
+    file holds raises before anything of its claim is reserved."""
     with open(path, "rb") as f:
         total = _rope_payload(f, path, fmt_cls)
+        available = os.fstat(f.fileno()).st_size - f.tell()
+        if total > available:
+            raise ValueError("file truncated: "
+                             f"{total - available} payload bytes missing")
         codes = np.empty(total, np.uint8)
         got = f.readinto(codes)
         if got < total:

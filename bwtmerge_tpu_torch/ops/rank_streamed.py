@@ -89,20 +89,21 @@ def ranks_all_unsorted(index: DeviceFMIndex, q: torch.Tensor) -> torch.Tensor:
 def backward_search_streamed(index: DeviceFMIndex, patterns: torch.Tensor,
                              lengths: torch.Tensor, max_len: int):
     """Batched backward search with the streamed probe; same contract as
-    rank_torch.backward_search."""
-    pat = patterns.to(torch.int64)
+    rank_torch.backward_search.  The pattern matrix stays in its dtype and
+    is read one character a row a step; the rest of a step's state is a
+    few vectors of Q or 2Q and K1's int32[OUT_W, 2Q] output."""
     lens = lengths.to(torch.int64)
-    q = pat.shape[0]
-    rows = torch.arange(q, device=pat.device)
+    q = patterns.shape[0]
+    rows = torch.arange(q, device=patterns.device)
     C = index.C.to(torch.int64)
-    last = pat[rows, lens - 1]
+    last = patterns[rows, lens - 1].to(torch.int64)
     sp = C[last]
     ep = C[last + 1] - 1
-    lane2 = torch.arange(2 * q, device=pat.device)
+    lane2 = torch.arange(2 * q, device=patterns.device)
     for t in range(max_len - 1):
         idx = lens - 2 - t
         active = (idx >= 0) & (ep >= sp)
-        c = pat[rows, idx.clamp(0, max_len - 1)]
+        c = patterns[rows, idx.clamp(0, max_len - 1)].to(torch.int64)
         c2 = torch.cat([c, c]).clamp(0, LANES - 1)
         key = torch.where(torch.cat([active, active]),
                           torch.cat([sp, ep + 1]), SENT).to(torch.int32)

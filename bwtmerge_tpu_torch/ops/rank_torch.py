@@ -20,7 +20,9 @@ needed.
 The queries here are the gather path (one record row per query).  Large
 sorted batches go through the hand-written streamed probe instead
 (rank_streamed.py); batch_count switches at the same batch size as the JAX
-package.
+package, but searches the whole batch at once where the JAX package cuts
+it into fixed chunks of one program shape: only a batch whose working set
+passes COUNT_BUDGET is cut, into as few chunks as the budget allows.
 """
 
 from __future__ import annotations
@@ -41,6 +43,16 @@ NIB_FILL = SIGMA | (SIGMA << 4)  # pad byte: no query lane counts SIGMA
 SENT = 2**31 - 1
 MAX_SIZE = SENT - 1   # the largest index the layout takes: SENT is no rank
 STREAMED_MIN_BATCH = 1 << 14     # batch_count's switch to the streamed search
+# Device working set of one chunk of a count (batch_count, count_encoded):
+# a row takes COUNT_ROW_BYTES in a search step (its two range ends, their
+# sort, K1's 64-byte output column each) and COUNT_CHAR_BYTES a character
+# (its int32 comp and map_comps' transients): 1,024 B a row of 32, where
+# an H100 measured 533.5 B a row plus 17 MB fixed at 2^21 rows of 32
+# (chip_smoke.counts_by_chunk).  4 GiB holds the paper's
+# 2^21 32-mers in one chunk with room to spare; a batch of long rows is cut.
+COUNT_BUDGET = 1 << 32
+COUNT_ROW_BYTES = 512
+COUNT_CHAR_BYTES = 16
 REC_TILE = 1024  # record blocks a tile of csrc/rec_build.cu (its kTile)
 REC_THREADS = 256    # threads a tile (its kThreads): 4 blocks a thread
 REC_STATUS_WORDS = 16   # int32 words of look-back status a tile
@@ -350,18 +362,17 @@ def backward_search(index: DeviceFMIndex, patterns: torch.Tensor,
 
     patterns: int[Q, max_len] comp values, only the first lengths[q] read.
     Same contract as rank_jax.backward_search."""
-    pat = patterns.to(torch.int64)
     lens = lengths.to(torch.int64)
-    q = pat.shape[0]
-    rows = torch.arange(q, device=pat.device)
+    q = patterns.shape[0]
+    rows = torch.arange(q, device=patterns.device)
     C = index.C.to(torch.int64)
-    last = pat[rows, lens - 1]
+    last = patterns[rows, lens - 1].to(torch.int64)
     sp = C[last]
     ep = C[last + 1] - 1
     for t in range(max_len - 1):
         idx = lens - 2 - t
         active = (idx >= 0) & (ep >= sp)
-        c = pat[rows, idx.clamp(0, max_len - 1)]
+        c = patterns[rows, idx.clamp(0, max_len - 1)].to(torch.int64)
         new_sp = C[c] + index.rank(sp, c)
         new_ep = C[c] + index.rank(ep + 1, c) - 1
         sp = torch.where(active, new_sp, sp)
@@ -441,14 +452,14 @@ class PatternBatch:
 
 def map_comps(raw: torch.Tensor, lens: torch.Tensor, given, table):
     """int32 comps of byte rows: each byte through `table` (char2comp, 256
-    entries), the rows marked in `given` (comp values) as they are, and 0
-    past each row's length."""
-    r = raw.to(torch.int64)
+    entries, int32), the rows marked in `given` (comp values) as they are,
+    and 0 past each row's length."""
+    comps = table[raw.to(torch.int32)]
     keep = torch.arange(raw.shape[1], device=raw.device)[None, :] \
         >= lens[:, None]
     if given is not None:
         keep |= given[:, None]
-    return torch.where(keep, r, table[r]).to(torch.int32)
+    return torch.where(keep, raw, comps).to(torch.int32)
 
 
 def encode_patterns(patterns, char2comp: np.ndarray):
@@ -463,58 +474,64 @@ def encode_patterns(patterns, char2comp: np.ndarray):
 
 
 def batch_count(index: DeviceFMIndex, patterns, char2comp: np.ndarray,
-                chunk: int = 1 << 16) -> np.ndarray:
+                budget: int = COUNT_BUDGET) -> np.ndarray:
     """Occurrence counts (int64) for a list of str/bytes/array patterns, or
     a PatternBatch of them (whose byte matrix later counts reuse).
 
-    Same chunking, padding and batch-size switch as rank_jax.batch_count:
-    chunks of up to `chunk` patterns, pad rows are 1-char dummies, and
-    batches of 2^14 or more take the streamed search (the hand-written
-    probe kernel on CUDA).  The bytes are mapped through char2comp on the
-    index's device, chunk by chunk."""
+    Counts equal rank_jax.batch_count's, and batches of more than 2^13
+    patterns take the streamed search as there (the hand-written probe
+    kernel on CUDA).  The batch is searched whole, with no pad rows, unless
+    its working set passes `budget` bytes (_count_rows).  The bytes are
+    mapped through char2comp on the index's device, chunk by chunk."""
     if not len(patterns):
         return np.zeros(0, dtype=np.int64)
     if not isinstance(patterns, PatternBatch):
         patterns = PatternBatch(patterns)
     raw, lens, given = patterns.on(index.device)
     table = torch.from_numpy(np.asarray(char2comp, np.int32)).to(index.device)
-    return _count_rows(index, lens, raw.shape[1], chunk, lambda s, e: (
+    return _count_rows(index, lens, raw.shape[1], budget, lambda s, e: (
         map_comps(raw[s:e], lens[s:e], None if given is None else given[s:e],
                   table)))
 
 
 def count_encoded(index: DeviceFMIndex, comps: np.ndarray,
-                  comp_lens: np.ndarray, chunk: int = 1 << 16) -> np.ndarray:
+                  comp_lens: np.ndarray,
+                  budget: int = COUNT_BUDGET) -> np.ndarray:
     """batch_count of patterns already encoded: comps int[Q, max_len] (comp
     values, the first comp_lens[q] of row q read), comp_lens int[Q]."""
     comps = torch.as_tensor(np.asarray(comps)).to(index.device)
     lens = torch.as_tensor(np.asarray(comp_lens)).to(index.device)
     if comps.shape[0] == 0:
         return np.zeros(0, dtype=np.int64)
-    return _count_rows(index, lens, comps.shape[1], chunk,
+    return _count_rows(index, lens, comps.shape[1], budget,
                        lambda s, e: comps[s:e])
 
 
+def count_chunk_rows(max_len: int, budget: int = COUNT_BUDGET) -> int:
+    """Rows of one chunk of a count at max_len characters a row: as many
+    as `budget` bytes of device working set hold, and at least one."""
+    return max(1, budget // (COUNT_ROW_BYTES + COUNT_CHAR_BYTES * max_len))
+
+
 def _count_rows(index: DeviceFMIndex, lens: torch.Tensor, max_len: int,
-                chunk: int, rows) -> np.ndarray:
+                budget: int, rows) -> np.ndarray:
     """Counts of Q patterns whose comp rows rows(start, end) gives on the
-    index's device: chunks of q_pad rows, only the last, partial one padded
-    with 1-char dummies; the counts stay on the device until one copy."""
+    index's device: chunks of count_chunk_rows(max_len, budget) rows, each
+    one search of max_len - 1 steps; the counts stay on the device until
+    one copy.  The streamed search takes batches of more than
+    STREAMED_MIN_BATCH / 2 patterns: those whose next power of two is at
+    least STREAMED_MIN_BATCH, as in rank_jax.batch_count."""
     from .rank_streamed import backward_search_streamed
 
     q = lens.shape[0]
-    q_pad = min(chunk, 1 << max(6, (q - 1).bit_length()))
-    search = (backward_search_streamed if q_pad >= STREAMED_MIN_BATCH
+    search = (backward_search_streamed if q > STREAMED_MIN_BATCH // 2
               else backward_search)
+    step = count_chunk_rows(max_len, budget)
     out = torch.empty(q, dtype=torch.int64, device=index.device)
-    for start in range(0, q, q_pad):
-        n = min(q_pad, q - start)
-        pat = rows(start, start + n)
-        n_lens = lens[start:start + n].clamp(min=1)
-        if n < q_pad:                         # pad queries: 1-char dummies
-            pat = torch.cat([pat, pat.new_zeros((q_pad - n, max_len))])
-            n_lens = torch.cat([n_lens, n_lens.new_ones(q_pad - n)])
-        sp, ep = search(index, pat, n_lens, max_len)
-        out[start:start + n] = (ep[:n].to(torch.int64)
-                                - sp[:n].to(torch.int64) + 1).clamp(min=0)
+    for start in range(0, q, step):
+        end = min(q, start + step)
+        sp, ep = search(index, rows(start, end),
+                        lens[start:end].clamp(min=1), max_len)
+        out[start:end] = (ep.to(torch.int64) - sp.to(torch.int64)
+                          + 1).clamp(min=0)
     return out.cpu().numpy()

@@ -103,9 +103,16 @@ Then bench.py's large scale and the record build at the layout's limit:
     to the --search trie merge; rec_build launched once a record table
     built in each run; phases, -v passes, index builds, Mbases/s, spill
     files.  The unspilled walk merge counts large-walk-v's own -v file
-    (2^21 32-mers): K1 launched exactly 992 times a count, and a line
-    before the run's splits each count into the patterns' encoding, its
-    index's build on the card and the chunk loop; a line after each walk
+    (2^21 32-mers): K1 launched exactly 93 times, 31 a count, as its 2^21
+    rows are one chunk under rank_torch.count_chunk_rows' default budget,
+    and a line before the run's splits each count into the patterns'
+    encoding, its index's build on the card and the search; once the run
+    is over, the same patterns are counted again at chunks of 2^16, 2^18
+    and 2^21 rows, each in a window of its own (search time, K1 launches,
+    peak device memory, the run's counts); then K1 at
+    the count's shape (both range ends of 2^21 patterns, every step's
+    sorted keys over the large A) against its plain version, timed with
+    its bound; a line after each walk
     merge splits its search phase (search_split: B's sidecar read, its
     layout, the gate's composition count, index build and spot walk, A's
     index, the planes, the walk and its copies, the primed stream).  Then
@@ -498,10 +505,13 @@ def bound(n_bytes: int, n_ops: int) -> dict:
 
 
 def probe_bound(rec, q, size: int) -> dict:
-    """K1's bound on these queries: every query read (4 B) and its output
-    column written (OUT_W int32), and each record that some query falls in
-    read once (64 B; queries past the size touch none).  Operations: a
-    compare and an add per position of the block and occ lane."""
+    """K1's bound on these queries: every query read (4 B) and the function's
+    output written, the 8 ranks and the symbol (36 B; the kernel's zero
+    rows 9..OUT_W-1 are layout, not output: no caller reads them), and
+    each record that some query falls in read once (64 B; queries past the
+    size touch none).  Operations: a compare and an add per position of
+    the block and occ lane.  bound_ms_with_zero_rows is the same with all
+    OUT_W rows written: what its earlier times were held against."""
     import torch
 
     from bwtmerge_tpu_torch.ops.rank_streamed import OUT_W
@@ -509,8 +519,12 @@ def probe_bound(rec, q, size: int) -> dict:
 
     live = q[q <= size]
     blocks = int(torch.unique_consecutive(live >> 5).numel())
-    n_bytes = q.numel() * (4 + 4 * OUT_W) + blocks * rec.shape[1] * 4
-    return bound(n_bytes, int(live.numel()) * BLK * LANES * 2)
+    records = blocks * rec.shape[1] * 4
+    n_ops = int(live.numel()) * BLK * LANES * 2
+    out = bound(q.numel() * (4 + 4 * (LANES + 1)) + records, n_ops)
+    out["bound_ms_with_zero_rows"] = bound(
+        q.numel() * (4 + 4 * OUT_W) + records, n_ops)["bound_ms"]
+    return out
 
 
 def walk_bound(creads, steps: int, planes, nblk: int) -> dict:
@@ -2314,7 +2328,9 @@ LARGE_SEEDS = (101, 102)          # bench.py:134
 LARGE_BLOCKS = 8                  # bench.py SCALES["large"] search blocks
 LARGE_BUDGET = ("3", "2")         # -r 3 -m 2: 6 Mi runs, bench.py's threshold
 CELL_PATTERNS = CELLS["large-walk-v"].patterns   # its -v file: 2^21 32-mers
-COUNT_CHUNK = 1 << 16             # rows a chunk of rank_torch.batch_count
+# the count's chunk sizes timed side by side: 2^16 rows (the JAX package's
+# chunk, and the port's before the count budget), 2^18, 2^21 (one chunk)
+COUNT_SPLIT_ROWS = (1 << 16, 1 << 18, 1 << 21)
 
 
 def build_large_fixture(device, path: str, m: int, seed: int,
@@ -2405,21 +2421,95 @@ def rec_build_memory(device, path: str) -> dict:
     return out
 
 
+def counts_by_chunk(device, fmi, patterns, counted, chunk_rows) -> list:
+    """The patterns (a PatternBatch) counted again in fmi's device index,
+    built first, once at each number of rows a chunk, each in a window of
+    its own with the kernels' launch counts set to 0 just before: search
+    seconds on the host clock (batch_count ends in the counts' copy), K1
+    launches (ceil(Q / rows) chunks of max_len - 1 steps), and the peak of
+    device memory above what was allocated before the count (the index and
+    the run's pattern bytes).  Every size must give `counted`, the merge's
+    own count."""
+    import torch
+
+    from bwtmerge_tpu_torch import kernels
+    from bwtmerge_tpu_torch.ops.rank_torch import (COUNT_CHAR_BYTES,
+                                                   COUNT_ROW_BYTES,
+                                                   batch_count,
+                                                   count_chunk_rows)
+
+    idx = fmi.device_index(device)
+    q = len(patterns)
+    max_len = max(map(len, patterns.patterns))
+    out = []
+    for rows in chunk_rows:
+        budget = rows * (COUNT_ROW_BYTES + COUNT_CHAR_BYTES * max_len)
+        if count_chunk_rows(max_len, budget) != rows:
+            raise AssertionError(f"a budget of {budget} B gives "
+                                 f"{count_chunk_rows(max_len, budget)}"
+                                 f" rows a chunk, not {rows}")
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        got = batch_count(idx, patterns, fmi.alpha.char2comp, budget)
+        took = time.monotonic() - t0
+        k1 = kernels.launches()["streamed_probe"]
+        want_k1 = (-(-q // rows) * (max_len - 1)
+                   if device.type == "cuda" else 0)
+        if k1 != want_k1 or not np.array_equal(got, counted):
+            raise AssertionError(
+                f"the count at {rows} rows a chunk launched K1 {k1} "
+                f"times (not {want_k1}) or differs from the merge's "
+                f"({int(got.sum())} against {int(counted.sum())} "
+                f"occurrences)")
+        out.append({"chunk_rows": rows, "search_s": took,
+                    "k1_launches": k1,
+                    "peak_bytes_above": int(
+                        torch.cuda.max_memory_allocated(device) - before),
+                    "occurrences": int(got.sum())})
+    return out
+
+
+def recount_by_chunk(device, split, counted, inputs, output,
+                     chunk_rows) -> None:
+    """After a merge run under count_split: each of its counts made again
+    at each of chunk_rows rows a chunk (counts_by_chunk), in the index of
+    the file it counted (the inputs in order, then the output), loaded
+    anew, with the run's own counts as the reference.  Adds by_chunk_rows
+    to each record of split."""
+    import torch
+
+    import bwtmerge_tpu_torch as port
+
+    paths = {"Input": list(inputs), "Output": [output]}
+    for rec, (role, patterns, counts) in zip(split, counted):
+        fmi = port.load_fmi(paths[role].pop(0), "sga")
+        rec["by_chunk_rows"] = counts_by_chunk(device, fmi, patterns, counts,
+                                               chunk_rows)
+        del fmi
+        torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def count_split(device):
     """Within the block, each -v count of the merge CLI is split into its
     parts, on the host clock, each part ending in a synchronize: the
     patterns' encoding (rank_torch.encode_patterns per count, or the byte
     matrix of rank_torch.pattern_bytes, built once a run, where the tree
-    has it), the build of its index on the device, and the rest (the
-    chunk loop: mapping, search, the counts' copy).  Yields the list of
-    {role, count_s, encode_s, index_build_s, search_s}."""
+    has it), the build of its index on the device, and the rest (mapping,
+    search, the counts' copy).  Yields (split, counted): the list of
+    {role, count_s, encode_s, index_build_s, search_s}, and for each count
+    (role, patterns, its counts), for recount_by_chunk once the run is
+    over."""
     import torch
 
     from bwtmerge_tpu_torch.cli import bwt_merge
     from bwtmerge_tpu_torch.ops import rank_torch
 
-    split = []
+    split, counted = [], []
     encode = {"s": 0.0, "open": False}
     plain = {"verify_fmi": bwt_merge.verify_fmi}
     names = [n for n in ("encode_patterns", "pattern_bytes")
@@ -2438,11 +2528,12 @@ def count_split(device):
                 encode["s"] += time.monotonic() - t0
         return run
 
-    def verify(fmi, role, *args, **kw):
+    def verify(fmi, role, patterns, results, *args, **kw):
         e0 = encode["s"]
+        r0 = results.copy()
         with indexes_built(device) as built:
             t0 = time.monotonic()
-            plain["verify_fmi"](fmi, role, *args, **kw)
+            plain["verify_fmi"](fmi, role, patterns, results, *args, **kw)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             total = time.monotonic() - t0
@@ -2451,13 +2542,14 @@ def count_split(device):
         split.append({"role": role, "count_s": total, "encode_s": enc,
                       "index_build_s": build,
                       "search_s": total - enc - build})
+        counted.append((role, patterns, results - r0))
 
     for n in names:
         plain[n] = getattr(rank_torch, n)
         setattr(rank_torch, n, timed_encode(plain[n]))
     bwt_merge.verify_fmi = verify
     try:
-        yield split
+        yield split, counted
     finally:
         bwt_merge.verify_fmi = plain["verify_fmi"]
         for n in names:
@@ -2711,10 +2803,15 @@ def large_path(device) -> dict:
     merge's; rec_build must have launched once an index built.  The
     unspilled walk merge takes large-walk-v's own -v file (2^21 32-mers,
     bench.write_patterns): each of its three counts split into encoding,
-    index build and search (count_split), on a line before the run's, and
-    K1 launched 992 times a count.  Then the large A's table by rec_build
-    and by the plain version: time and peak device memory."""
+    index build and search (count_split), on a line before the run's, K1
+    launched exactly 3 x 31 times (each count one chunk of 31 steps), and
+    once the run is over each count made again at COUNT_SPLIT_ROWS rows a
+    chunk (recount_by_chunk).  Then K1
+    at the count's shape over the large A (count_probe_times), and the
+    large A's table by rec_build and by the plain version: time and peak
+    device memory."""
     from bwtmerge_tpu_torch.formats import read_bwt
+    from bwtmerge_tpu_torch.ops.rank_torch import count_chunk_rows
 
     d = os.path.join(CACHE, f"large_{LARGE[0]}_{LARGE[1]}")
     a_path, b_path = os.path.join(d, "a.sga"), os.path.join(d, "b.sga")
@@ -2749,9 +2846,10 @@ def large_path(device) -> dict:
     for name, extra in runs_of.items():
         outs[name] = os.path.join(d, f"merged_{name}.sga")
         split_of = count_split(device) if name == "walk" \
-            else contextlib.nullcontext(None)
+            else contextlib.nullcontext((None, None))
         with spill_files_made() as spilled, \
-                indexes_built(device) as built, split_of as split, \
+                indexes_built(device) as built, \
+                split_of as (split, counted), \
                 search_split(device) as searched:
             rc, std, err, counts, wall = run_cli(
                 [a_path, b_path, outs[name], *common, *extra])
@@ -2773,12 +2871,19 @@ def large_path(device) -> dict:
         if device.type == "cuda" and any(counts[k] < 1 for k in need):
             raise AssertionError(f"large merge {name} launched {counts}")
         if name == "walk":
-            # K1 only in the counts: 2^21 / 2^16 chunks of 31 steps each
-            k1 = 3 * (CELL_PATTERNS // COUNT_CHUNK) * (PATTERN_LEN - 1)
+            # K1 only in the counts: each count's 2^21 32-mers are one
+            # chunk at the default budget, searched in 31 steps
+            if count_chunk_rows(PATTERN_LEN) < CELL_PATTERNS:
+                raise AssertionError(
+                    f"{CELL_PATTERNS} {PATTERN_LEN}-mers do not fit in one "
+                    f"chunk ({count_chunk_rows(PATTERN_LEN)} rows)")
+            k1 = 3 * (PATTERN_LEN - 1)
             if device.type == "cuda" and counts["streamed_probe"] != k1:
                 raise AssertionError(f"large walk -v launched K1 "
                                      f"{counts['streamed_probe']} times, "
                                      f"not {k1}")
+            recount_by_chunk(device, split, counted, (a_path, b_path),
+                             outs[name], COUNT_SPLIT_ROWS)
             log(f"large walk -v, {CELL_PATTERNS} patterns, each count "
                 f"split: {json.dumps(split)}")
         if name != "trie":
@@ -2803,11 +2908,78 @@ def large_path(device) -> dict:
                    f"large merge, {name} against the spilled walk")
     for out in outs.values():
         os.remove(out)
+    result["k1_count_shape"] = count_probe_times(device, a_path, cell_pat)
     result["rec_build_large_a"] = rec_build_memory(device, a_path)
     log(f"rec_build and the plain build, large A: "
         f"{json.dumps(result['rec_build_large_a'])}")
     result["decode_rows_large_b"] = decode_rows_large_b(device, b_path)
     return result
+
+
+def count_probe_times(device, a_path: str, pat_path: str) -> dict:
+    """K1 at a -v count's shape: the sorted keys of every step of the
+    count of pat_path's patterns (2^21 32-mers: 2^22 keys a step, the
+    finished ends as 2^31-1 sentinels) in the large A's index, taken from
+    one count and replayed.  Each step's keys through K1 against the plain
+    version, exact; each step timed both ways, with its bound (probe_bound).
+    Sums over the count's steps, and the mean a launch."""
+    import torch
+
+    import bwtmerge_tpu_torch as port
+    from bwtmerge_tpu_torch.cli.common import read_rows
+    from bwtmerge_tpu_torch.ops import rank_streamed
+    from bwtmerge_tpu_torch.ops.rank_torch import batch_count
+
+    fmi = port.load_fmi(a_path, "sga")
+    idx = fmi.device_index(device)
+    patterns = read_rows(pat_path)
+    keys = []
+    probe = rank_streamed.streamed_probe
+
+    def keep(rec, q, size):
+        keys.append(q.clone())
+        return probe(rec, q, size)
+
+    rank_streamed.streamed_probe = keep
+    try:
+        batch_count(idx, patterns, fmi.alpha.char2comp)
+    finally:
+        rank_streamed.streamed_probe = probe
+    out = {"positions": idx.size, "patterns": len(patterns),
+           "launches": len(keys), "queries": int(keys[0].numel()),
+           "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "bound_ms_with_zero_rows": 0.0, "max_abs_err": 0,
+           "live_queries": 0}
+    bound_by = set()
+    for q in keys:
+        got = probe(idx.rec, q, idx.size)
+        want = rank_streamed.streamed_probe_plain(idx.rec, q, idx.size)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"streamed_probe differs from its plain "
+                                 f"version at the count's shape (max abs "
+                                 f"err {err})")
+        del got, want
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["ms"] += time_ms(lambda: probe(idx.rec, q, idx.size), device)
+        out["plain_ms"] += time_ms(
+            lambda: rank_streamed.streamed_probe_plain(idx.rec, q, idx.size),
+            device, 2)
+        step = probe_bound(idx.rec, q, idx.size)
+        out["bound_ms"] += step["bound_ms"]
+        out["bound_ms_with_zero_rows"] += step["bound_ms_with_zero_rows"]
+        bound_by.add(step["bound_by"])
+        out["live_queries"] += int((q <= idx.size).sum())
+    out["bound_by"] = "/".join(sorted(bound_by))
+    out["ms_a_launch"] = out["ms"] / len(keys)
+    out["bound_ms_a_launch"] = out["bound_ms"] / len(keys)
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    out["share_of_bound_with_zero_rows"] = (out["bound_ms_with_zero_rows"]
+                                            / out["ms"])
+    log(f"K1 at the count's shape, large A: equal; {json.dumps(out)}")
+    del keys, idx, fmi
+    torch.cuda.empty_cache()
+    return out
 
 
 def decode_rows_large_b(device, path: str) -> dict:
@@ -3179,6 +3351,9 @@ def main() -> int:
         large = large_path(device)
         for key in ("spilled_walk_v", "walk", "trie"):
             paths[f"large_{key}"] = large[key]
+        for rec in records:
+            if rec["name"] == "streamed_probe":
+                rec["count_shape"] = large["k1_count_shape"]
         log(json.dumps({"pass_split": pass_splits(device, 1)}))
         rec_build_near_limit(device)
         # the xlarge tier's 3-way fold, its base cut to three folds

@@ -274,3 +274,58 @@ def test_sga_totals_state_and_rope_layout_are_checked():
         p_native.RopeRuns(5, 8, 0, 31).fill(np.zeros(4, np.uint8), 64)
     with pytest.raises(ValueError):
         p_native.RopeRuns(5, 7, 0, 31).fill(np.zeros(4, np.uint8), 0)
+
+
+def _claiming_sga(path, claim):
+    """An SGA file whose header claims `claim` codes over 66 payload bytes."""
+    with open(path, "wb") as f:
+        f.write(j_formats.SGAHeader(sequences=0, bases=0,
+                                    bytes_=claim).to_bytes())
+        f.write(bytes([_code("sga", 1, 3)] * 66))
+    return str(path)
+
+
+def _merge_cli(pkg):
+    import importlib
+
+    cli = importlib.import_module(f"{pkg}.cli.bwt_merge")
+    extra = ["--device", "cpu"] if pkg.endswith("_torch") else []
+    return lambda p, out: cli.main([p, p, out, "-i", "sga", "-o", "sga",
+                                    "--quiet", *extra])
+
+
+@pytest.mark.parametrize("surface", ["read_bwt", "read_bwt_streaming",
+                                     "read_bwt_chunks", "bwt_merge"])
+@pytest.mark.parametrize("claim_bits", [20, 36, 40])
+def test_sga_claim_past_the_file_raises_as_in_jax(tmp_path, claim_bits,
+                                                  surface):
+    import tracemalloc
+
+    claim = 1 << claim_bits
+    path = _claiming_sga(tmp_path / "claims.sga", claim)
+    out = str(tmp_path / "out.sga")
+    calls = {
+        "read_bwt": lambda pk: pk[0].read_bwt(path, "sga"),
+        "read_bwt_streaming": lambda pk: pk[1].read_bwt_streaming(path,
+                                                                  "sga"),
+        "read_bwt_chunks": lambda pk: list(pk[1].read_bwt_chunks(path,
+                                                                 "sga")),
+        "bwt_merge": lambda pk: _merge_cli(pk[2])(path, out)}
+    got = []
+    for pk in ((p_formats, p_sread, "bwtmerge_tpu_torch"),
+               (j_formats, j_sread, "bwtmerge_tpu")):
+        tracemalloc.start()
+        try:
+            with pytest.raises(ValueError) as e:
+                calls[surface](pk)
+            peak = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+        got.append((e.type, str(e.value), peak))
+    (p_type, p_msg, p_peak), (j_type, j_msg, _) = got
+    assert p_type is j_type is ValueError
+    assert p_msg == j_msg == (f"file truncated: {claim - 66} payload bytes "
+                              "missing")
+    if surface in ("read_bwt", "read_bwt_streaming"):
+        assert p_peak < claim // 2        # nothing of the claim reserved
+    assert not (tmp_path / "out.sga").exists()

@@ -435,3 +435,114 @@ def test_rec_build_entry_rejects_bad_inputs():
         rank_torch.build_rec(nib, 0)
     with pytest.raises(ValueError, match="base"):
         rank_torch.build_rec(nib, 4, torch.zeros(6, dtype=torch.int32))
+
+
+COUNT_QS = [1, 1 << 13, (1 << 13) + 1, 1 << 14, (1 << 16) - 1, 1 << 16,
+            (1 << 16) + 1, 3 * (1 << 16) + 5]
+LONG_ROW = 29
+
+
+def _count_patterns(text, long_row, q, seed):
+    """q patterns over `text` (a str): ragged substrings of 0..13
+    characters, a seventh of them random (N included), every 13th empty,
+    and row q // 2 `long_row`."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 14, q)
+    starts = rng.integers(0, len(text) - 14, q)
+    noise = "".join(rng.choice(np.array(list("ACGTN")), 16 * q))
+    pats = [noise[16 * k:16 * k + n] if k % 7 == 3 else text[s:s + n]
+            for k, (s, n) in enumerate(zip(starts.tolist(), lens.tolist()))]
+    for k in range(0, q, 13):
+        pats[k] = ""
+    pats[q // 2] = long_row
+    return pats
+
+
+@pytest.fixture(scope="module")
+def count_index():
+    """The index of one collection on both packages, and per batch size
+    its patterns with rank_jax.batch_count's counts (computed once)."""
+    seqs = _collection(6)
+    runs = oracle.build_bwt(seqs)
+    j = rank_jax.DeviceFMIndex.build(runs, runs.counts(6))
+    t = rank_torch.DeviceFMIndex.build(runs, runs.counts(6), "cpu")
+    c2c = Alphabet().char2comp
+    reads = [bytes(Alphabet().comp2char[s]).decode() for s in seqs]
+    long_row = max(reads, key=len)[:LONG_ROW]     # found in one read
+    assert len(long_row) == LONG_ROW
+    cache = {}
+
+    def case(q):
+        if q not in cache:
+            pats = _count_patterns("".join(reads), long_row, q, q)
+            cache[q] = pats, rank_jax.batch_count(j, pats, c2c)
+        return cache[q]
+
+    return t, c2c, case
+
+
+def _spy_searches(monkeypatch):
+    """Record (search, rows) of every search _count_rows makes."""
+    calls = []
+    for mod, name in ((rank_torch, "backward_search"),
+                      (rank_streamed, "backward_search_streamed")):
+        plain = getattr(mod, name)
+
+        def spy(index, pat, lens, max_len, plain=plain, name=name):
+            calls.append((name, pat.shape[0]))
+            return plain(index, pat, lens, max_len)
+
+        monkeypatch.setattr(mod, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("chunks", ["one", "many"])
+@pytest.mark.parametrize("q", COUNT_QS)
+def test_counts_equal_jax_at_every_batch_size(count_index, q, chunks,
+                                              monkeypatch):
+    """batch_count and count_encoded equal rank_jax.batch_count (chunks of
+    2^16 padded to a power of two) whether the batch is searched whole or
+    in chunks of about a fifth of it; the streamed search takes batches of
+    more than 2^13 patterns, as in the JAX package."""
+    t, c2c, case = count_index
+    pats, want = case(q)
+    assert max(map(len, pats)) == LONG_ROW
+    assert min(map(len, pats)) == 0 or q == 1
+    per_row = rank_torch.COUNT_ROW_BYTES \
+        + rank_torch.COUNT_CHAR_BYTES * LONG_ROW
+    rows = q if chunks == "one" else max(1, q // 5)
+    budget = rank_torch.COUNT_BUDGET if chunks == "one" else rows * per_row
+    assert rank_torch.count_chunk_rows(LONG_ROW, budget) >= rows
+    assert rank_torch.count_chunk_rows(LONG_ROW, budget) == rows \
+        or chunks == "one"
+    calls = _spy_searches(monkeypatch)
+    comps, lens = rank_torch.encode_patterns(pats, c2c)
+    for got in (rank_torch.batch_count(t, pats, c2c, budget),
+                rank_torch.count_encoded(t, comps, lens, budget)):
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+    name = "backward_search_streamed" if q > 1 << 13 else "backward_search"
+    sizes = [rows] * (q // rows) + ([q % rows] if q % rows else [])
+    assert calls == [(name, n) for n in sizes] * 2
+    assert want.sum() > 0
+
+
+@pytest.mark.parametrize("q, rows", [(40, 1), (40, 7), ((1 << 14) + 3, 1000),
+                                     ((1 << 14) + 3, (1 << 13) + 1)])
+def test_small_budget_counts_equal_one_chunk(count_index, q, rows):
+    """A budget that holds only `rows` patterns cuts the batch into chunks
+    of that many (the last one short), and the counts equal one chunk's."""
+    t, c2c, case = count_index
+    pats, _ = case(q)
+    one = rank_torch.batch_count(t, pats, c2c)
+    per_row = rank_torch.COUNT_ROW_BYTES \
+        + rank_torch.COUNT_CHAR_BYTES * LONG_ROW
+    budget = rows * per_row + per_row - 1
+    assert rank_torch.count_chunk_rows(LONG_ROW, budget) == rows
+    many = rank_torch.batch_count(t, rank_torch.PatternBatch(pats), c2c,
+                                  budget)
+    np.testing.assert_array_equal(many, one)
+    comps, lens = rank_torch.encode_patterns(pats, c2c)
+    np.testing.assert_array_equal(
+        rank_torch.count_encoded(t, comps, lens, budget), one)
+    assert rank_torch.count_chunk_rows(LONG_ROW, 1) == 1
