@@ -1,41 +1,77 @@
-// Streamed-rank probe (K1): all 8 ranks and the symbol at q, for a batch of
-// sorted positions q, over the block-fused record table.
+// Streamed-rank probe (K1): ranks over the block-fused record table for a
+// batch of sorted positions q, in three forms, each writing only what its
+// callers read.
 //
-// Replaces: bwtmerge_tpu/ops/rank_pallas.py:_kernel (launched by
+// Replaces: bwtmerge_tpu/ops/rank_pallas.py:_kernel (:58, launched by
 // _streamed_ranks_padded through pl.pallas_call).  Only the contract is
-// ported; the TPU's tile streaming and bf16 one-hot matmuls are not.
+// ported: not the TPU's tile streaming and bf16 one-hot matmuls, and not
+// its 16-row output (OUT_W = 16 there, a sublane pad whose rows 9-15 are
+// always zero).
 //
 // Contract.  rec is int32[NBLK, 16]: words 0-7 hold the exclusive occ count
 // of each character before the block, words 8-15 the block's 32 symbols,
-// 4 per word, LSB first (word w holds positions 4w..4w+3).  q is int32[Q];
-// out is int32[16, Q] row-major.  For 0 <= q <= size: rows 0-7 are
-// rank(q, c) for c = 0..7, row 8 is the symbol at q (the pad value SIGMA
-// when q == size), rows 9-15 are zero.  For any other q (the 2^31-1
-// sentinel of a sorted batch) all 16 rows are zero and the table is never
-// indexed.
+// 4 per word, LSB first (word w holds positions 4w..4w+3).  q is int32[Q],
+// non-decreasing.  A q outside [0, size] (the 2^31-1 sentinel of a sorted
+// batch) never indexes the table and writes zeros.  For 0 <= q <= size:
 //
-// What bounds it on this card.  Each query reads one 64-byte record and
-// writes 64 bytes of output: 128 bytes of device memory traffic and about
-// 300 integer operations, so it is bound by memory, and by the latency of
-// the record load when neighbouring queries fall in different records.
+//   full    out int32[9, Q] row-major: rows 0-7 rank(q, c) for c = 0..7,
+//           row 8 the symbol at q (the pad value SIGMA when q == size).
+//           Bytes a query: 4 in, 36 out.  Operations: a compare and an add
+//           for each of 8 characters at each of 32 positions.  For the
+//           trie's range step and ranks_all.
+//   select  chars[Q] beside the keys (uint8, int8, int16, int32 or int64:
+//           the caller's own dtype); out int32[Q], rank(q, clamp(c, 0, 7)).
+//           Given perm (int64[Q], the permutation that sorted the keys),
+//           chars are in the caller's order and read as chars[perm[i]],
+//           and each rank is written to its caller's place, out[perm[i]]:
+//           a sort's realign, fused into the launch.  Bytes a query: 4 in,
+//           1-8 for the character, 4 out, 8 more for perm.  Operations: a
+//           compare and an add at each of 32 positions.  For a -v count's
+//           step (fused) and the trie's singles step on A (sorted chars).
+//   lf      out int32[2, Q]: row 0 the symbol s at q, row 1 rank(q,
+//           clamp(s, 0, 7)): one LF step.  Bytes a query: 4 in, 8 out;
+//           operations as select.  For the trie's singles step on B.
+//
+// What bounds it on this card.  Each live query reads one 64-byte record,
+// shared with its neighbours when they fall in the same block, so every
+// form is bound by memory: by the records and, for full, by its 36 bytes
+// of output a query.  The earlier kernel stored 64 bytes a query whatever
+// the caller read (the TPU's 16 rows); at a -v count's keys those stores
+// were most of its traffic.
+//
+// The fused select form also reads one character and writes one rank at
+// random through perm: two 4-byte accesses a key, each a 32-byte sector of
+// L2 traffic, which bound it more than its bytes do (at a -v count's keys
+// about 9.5M sectors a launch).
 //
 // What the design does about it.  One thread per query; the record is four
 // 16-byte loads.  Because the batch is sorted, neighbouring threads of a
 // warp read the same or neighbouring records, so the loads coalesce: that
-// is the GPU's counterpart of the TPU's table streaming, and why the
-// contract asks for sorted queries.  The per-character prefix count is a
-// SWAR zero-byte test and a popcount per packed word, all in registers.
-// The output is row-major so consecutive threads store to consecutive
-// addresses.
+// is the GPU's counterpart of the TPU's table streaming.  Each form stores
+// only its own rows, row-major, so consecutive threads store to
+// consecutive addresses (the fused select's stores scatter by perm, in
+// place of a separate gather and scatter over the whole batch).  The keys
+// and perm, read once, are loaded evict-first (ld.global.cs), and so are
+// the records in the fused select form, so that its characters and ranks
+// keep their lines in the L2 between the random accesses.  A prefix
+// count is a SWAR zero-byte test and a popcount per packed word, all in
+// registers: select and lf count one character (8 tests), full all eight
+// (64).  Masks come from compares and constant shifts only: a
+// data-dependent shift miscompiled here under nvcc 12.8 (sm_90a).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kOutRows = 16;
 constexpr int kLanes = 8;
+constexpr int kFullRows = kLanes + 1;
 constexpr int kThreads = 256;
+
+// the forms and the select form's character types, as the wrapper passes
+// them (bwtmerge_tpu_torch/ops/rank_streamed.py: FORMS, CHAR_TYPES)
+enum Form : int { kFull = 0, kSelect = 1, kLf = 2 };
+enum CharType : int { kU8 = 0, kI8 = 1, kI16 = 2, kI32 = 3, kI64 = 4 };
 
 // 0x80 in every byte of x that is zero, 0 elsewhere.
 __device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
@@ -43,68 +79,176 @@ __device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
   return ~t & 0x80808080u;
 }
 
+struct Record {
+  int occ[kLanes];
+  uint32_t words[8];
+  uint32_t before[8];   // 0x80 in the bytes of the positions < q & 31
+  int off;              // q & 31
+};
+
+// kEvictFirst marks the record's lines first to leave the L2 (ld.global.cs),
+// so that the characters and ranks the fused select form reads and writes
+// at random through the permutation stay there
+template <bool kEvictFirst>
+__device__ __forceinline__ Record load_record(const int4* __restrict__ rec,
+                                              int qi) {
+  const int4* r = rec + (int64_t)(qi >> 5) * 4;
+  int4 o0, o1, w0, w1;
+  if constexpr (kEvictFirst) {
+    o0 = __ldcs(r); o1 = __ldcs(r + 1); w0 = __ldcs(r + 2); w1 = __ldcs(r + 3);
+  } else {
+    o0 = __ldg(r); o1 = __ldg(r + 1); w0 = __ldg(r + 2); w1 = __ldg(r + 3);
+  }
+  Record x;
+  x.occ[0] = o0.x; x.occ[1] = o0.y; x.occ[2] = o0.z; x.occ[3] = o0.w;
+  x.occ[4] = o1.x; x.occ[5] = o1.y; x.occ[6] = o1.z; x.occ[7] = o1.w;
+  x.words[0] = (uint32_t)w0.x; x.words[1] = (uint32_t)w0.y;
+  x.words[2] = (uint32_t)w0.z; x.words[3] = (uint32_t)w0.w;
+  x.words[4] = (uint32_t)w1.x; x.words[5] = (uint32_t)w1.y;
+  x.words[6] = (uint32_t)w1.z; x.words[7] = (uint32_t)w1.w;
+  x.off = qi & 31;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * w + b < x.off) m |= 0x80u << (8 * b);
+    x.before[w] = m;
+  }
+  return x;
+}
+
+// the symbol at position off of the block
+__device__ __forceinline__ int symbol_at(const Record& x) {
+  int sym = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * w + b == x.off) sym = (x.words[w] >> (8 * b)) & 0xFF;
+  return sym;
+}
+
+// rank(q, c) for c in [0, 7]; occ[c] picked by compares, so the array
+// stays in registers
+__device__ __forceinline__ int rank_of(const Record& x, int c) {
+  int o = x.occ[0];
+#pragma unroll
+  for (int k = 1; k < kLanes; ++k)
+    if (c == k) o = x.occ[k];
+  uint32_t pat = 0x01010101u * (uint32_t)c;
+  int cnt = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w)
+    cnt += __popc(zero_bytes(x.words[w] ^ pat) & x.before[w]);
+  return o + cnt;
+}
+
+template <typename T>
+__device__ __forceinline__ int clamp_char(T v) {
+  return v <= (T)0 ? 0 : (v >= (T)(kLanes - 1) ? kLanes - 1 : (int)v);
+}
+
+template <int kForm, typename CharT, bool kPerm>
 __global__ void __launch_bounds__(kThreads)
 streamed_probe_kernel(const int4* __restrict__ rec, const int* __restrict__ q,
-                      int64_t n, int size, int* __restrict__ out) {
+                      int64_t n, int size, const CharT* __restrict__ chars,
+                      const int64_t* __restrict__ perm,
+                      int* __restrict__ out) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  int qi = q[i];
-  int res[kLanes + 1];
+  int qi = __ldcs(q + i);
+  bool live = qi >= 0 && qi <= size;
+  if constexpr (kForm == kFull) {
+    int res[kFullRows];
 #pragma unroll
-  for (int k = 0; k <= kLanes; ++k) res[k] = 0;
-
-  if (qi >= 0 && qi <= size) {
-    const int4* r = rec + (int64_t)(qi >> 5) * 4;
-    int4 o0 = __ldg(r), o1 = __ldg(r + 1), w0 = __ldg(r + 2), w1 = __ldg(r + 3);
-    int occ[kLanes] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
-    uint32_t words[8] = {(uint32_t)w0.x, (uint32_t)w0.y, (uint32_t)w0.z,
-                         (uint32_t)w0.w, (uint32_t)w1.x, (uint32_t)w1.y,
-                         (uint32_t)w1.z, (uint32_t)w1.w};
-    int off = qi & 31;
-    // 0x80 in the bytes of positions < off, and the symbol at off; built
-    // from compares and constant shifts only (no data-dependent shift)
-    uint32_t before[8];
-    int sym = 0;
+    for (int k = 0; k < kFullRows; ++k) res[k] = 0;
+    if (live) {
+      Record x = load_record<false>(rec, qi);
 #pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      uint32_t m = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if (4 * w + b < off) m |= 0x80u << (8 * b);
-        if (4 * w + b == off) sym = (words[w] >> (8 * b)) & 0xFF;
-      }
-      before[w] = m;
+      for (int c = 0; c < kLanes; ++c) res[c] = rank_of(x, c);
+      res[kLanes] = symbol_at(x);
     }
 #pragma unroll
-    for (int c = 0; c < kLanes; ++c) {
-      uint32_t pat = 0x01010101u * (uint32_t)c;
-      int cnt = 0;
-#pragma unroll
-      for (int w = 0; w < 8; ++w)
-        cnt += __popc(zero_bytes(words[w] ^ pat) & before[w]);
-      res[c] = occ[c] + cnt;
+    for (int k = 0; k < kFullRows; ++k) out[k * n + i] = res[k];
+  } else if constexpr (kForm == kSelect) {
+    int64_t dst = i;
+    if constexpr (kPerm) dst = __ldcs((const long long*)perm + i);
+    int rank = 0;
+    if (live) {
+      Record x = load_record<kPerm>(rec, qi);
+      rank = rank_of(x, clamp_char(chars[dst]));
     }
-    res[kLanes] = sym;
+    out[dst] = rank;
+  } else {
+    int sym = 0, rank = 0;
+    if (live) {
+      Record x = load_record<false>(rec, qi);
+      sym = symbol_at(x);
+      rank = rank_of(x, sym < kLanes - 1 ? sym : kLanes - 1);
+    }
+    out[i] = sym;
+    out[n + i] = rank;
   }
-#pragma unroll
-  for (int k = 0; k <= kLanes; ++k) out[k * n + i] = res[k];
-#pragma unroll
-  for (int k = kLanes + 1; k < kOutRows; ++k) out[k * n + i] = 0;
+}
+
+template <int kForm, typename CharT, bool kPerm>
+int launch(const void* rec, const void* q, int64_t n, int size,
+           const void* chars, const void* perm, void* out,
+           cudaStream_t stream) {
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  streamed_probe_kernel<kForm, CharT, kPerm>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(
+          (const int4*)rec, (const int*)q, n, size, (const CharT*)chars,
+          (const int64_t*)perm, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename CharT>
+int launch_select(const void* rec, const void* q, int64_t n, int size,
+                  const void* chars, const void* perm, void* out,
+                  cudaStream_t stream) {
+  return perm ? launch<kSelect, CharT, true>(rec, q, n, size, chars, perm,
+                                             out, stream)
+              : launch<kSelect, CharT, false>(rec, q, n, size, chars, perm,
+                                              out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// One launch of the form `form` (chars, char_type and perm are read by
+// the select form only; perm may be null).  Returns cudaGetLastError()
+// after the launch (0 on success), cudaErrorInvalidValue for a form or
+// character type it does not know.
 int streamed_probe_launch(const void* rec, const void* q, int64_t n, int size,
-                          void* out, void* stream) {
+                          int form, const void* chars, int char_type,
+                          const void* perm, void* out, void* stream) {
   if (n <= 0) return 0;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  streamed_probe_kernel<<<(unsigned)blocks, kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const int4*)rec, (const int*)q, n, size, (int*)out);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {
+    case kFull:
+      return launch<kFull, int, false>(rec, q, n, size, nullptr, nullptr,
+                                       out, s);
+    case kLf:
+      return launch<kLf, int, false>(rec, q, n, size, nullptr, nullptr, out,
+                                     s);
+    case kSelect:
+      switch (char_type) {
+        case kU8: return launch_select<uint8_t>(rec, q, n, size, chars, perm,
+                                                out, s);
+        case kI8: return launch_select<int8_t>(rec, q, n, size, chars, perm,
+                                               out, s);
+        case kI16: return launch_select<int16_t>(rec, q, n, size, chars,
+                                                 perm, out, s);
+        case kI32: return launch_select<int32_t>(rec, q, n, size, chars,
+                                                 perm, out, s);
+        case kI64: return launch_select<int64_t>(rec, q, n, size, chars,
+                                                 perm, out, s);
+      }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* streamed_probe_error_string(int code) {

@@ -10,8 +10,10 @@ launch and a nonzero code raises here.
 
 Each kernel keeps an integer launch count (`Kernel.launches`), raised by
 one at every launch and nowhere else, so a run can show that its main path
-went through the kernels.  The mesh paths launch from one worker thread
-per shard, so the count is raised under a lock.
+went through the kernels.  A kernel with several forms (K1) also counts
+each form's launches apart (`Kernel.forms`, `launches_by_form`); every
+form counts under the kernel's one name.  The mesh paths launch from one
+worker thread per shard, so the counts are raised under a lock.
 
 Nothing here touches CUDA or runs `nvcc` at import time.
 """
@@ -107,7 +109,8 @@ def build(force: bool = False) -> float:
 class Kernel:
     """One CUDA entry point of one `csrc/` library, with its launch count."""
 
-    def __init__(self, name: str, source: str, argtypes, error_fn: str):
+    def __init__(self, name: str, source: str, argtypes, error_fn: str,
+                 forms=()):
         self.name = name
         self.source = source
         self._argtypes = argtypes
@@ -116,6 +119,7 @@ class Kernel:
         self._errstr = None
         self._lock = threading.Lock()
         self.launches = 0
+        self.forms = dict.fromkeys(forms, 0)
 
     def _load(self):
         with self._lock:
@@ -131,9 +135,12 @@ class Kernel:
                 self._fn, self._errstr = fn, err
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, form: str = None) -> None:
         """Launch on PyTorch's current stream of the current device (the
-        caller sets the device); raises on a nonzero launch status."""
+        caller sets the device); raises on a nonzero launch status.  `form`
+        names the form launched, for a kernel that has forms."""
+        if not (form in self.forms if self.forms else form is None):
+            raise ValueError(f"{self.name}: unknown form {form!r}")
         fn = self._load()
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(*args, stream)
@@ -142,10 +149,13 @@ class Kernel:
                                f"{self._errstr(code).decode()} ({code})")
         with self._lock:
             self.launches += 1
+            if form is not None:
+                self.forms[form] += 1
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
+            self.forms = dict.fromkeys(self.forms, 0)
 
 
 _P = ctypes.c_void_p
@@ -153,8 +163,9 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 
 STREAMED_PROBE = Kernel("streamed_probe", "streamed_probe.cu",
-                        [_P, _P, _I64, _I32, _P, _P],
-                        "streamed_probe_error_string")
+                        [_P, _P, _I64, _I32, _I32, _P, _I32, _P, _P, _P],
+                        "streamed_probe_error_string",
+                        forms=("full", "select", "lf"))
 WALK_EMIT = Kernel("walk_emit", "walk.cu",
                    [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P],
                    "walk_error_string")
@@ -179,3 +190,8 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def launches_by_form() -> dict:
+    """Each form's launches, as {"<kernel>.<form>": n}."""
+    return {f"{k.name}.{f}": n for k in KERNELS for f, n in k.forms.items()}

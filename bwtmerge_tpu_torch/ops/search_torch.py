@@ -24,9 +24,10 @@ per depth.
 Each step exists twice.  The gather steps (expand_step, singles_step) read
 one record row per query (DeviceFMIndex.ranks_all, LF_step).  The streamed
 steps (expand_step_streamed, singles_step_streamed) sort their queries and
-probe through rank_streamed.streamed_probe, the wrapper of the hand-written
-CUDA kernel K1; they are the default on a CUDA device, the gather steps on
-the CPU (default_streamed).
+probe through the wrappers of the hand-written CUDA kernel K1
+(rank_streamed.py): the range step through its full form, the singles step
+through its lf form on B and its select form on A.  They are the default on
+a CUDA device, the gather steps on the CPU (default_streamed).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ import torch
 
 from ..utils.ranges import get_bounds
 from .ra_stream import BlockedRA
-from .rank_streamed import streamed_probe
-from .rank_torch import LANES, SIGMA, DeviceFMIndex
+from .rank_streamed import streamed_lf, streamed_probe, streamed_select
+from .rank_torch import SIGMA, DeviceFMIndex
 
 Frontier = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -53,14 +54,19 @@ def default_streamed(device) -> bool:
 
 def _c64(idx: DeviceFMIndex) -> torch.Tensor:
     """C[1..SIGMA-1] as int64: child positions are formed in int64, so
-    C[c] + rank cannot wrap."""
+    C[c] + rank cannot wrap (an int32 rank added to it widens)."""
     return idx.C[1:SIGMA].to(torch.int64)
 
 
+def _keys(q_sorted: torch.Tensor) -> torch.Tensor:
+    """A non-decreasing int64 batch as K1's int32 keys."""
+    return q_sorted.to(torch.int32).contiguous()
+
+
 def _probe(idx: DeviceFMIndex, q_sorted: torch.Tensor) -> torch.Tensor:
-    """streamed_probe of a non-decreasing int64 batch: int64[OUT_W, Q]."""
-    return streamed_probe(idx.rec, q_sorted.to(torch.int32).contiguous(),
-                          idx.size).to(torch.int64)
+    """The full form's ranks of characters 1..SIGMA-1 for a non-decreasing
+    int64 batch: int32[SIGMA-1, Q]."""
+    return streamed_probe(idx.rec, _keys(q_sorted), idx.size)[1:SIGMA]
 
 
 # -- one depth step, range nodes ----------------------------------------------
@@ -96,11 +102,11 @@ def expand_step_streamed(a_idx: DeviceFMIndex, b_idx: DeviceFMIndex,
     which the probe takes."""
     order = torch.argsort(b_sp)
     kb, eb, ab = b_sp[order], b_ep[order], a_pos[order]
-    pb_sp = _probe(b_idx, kb)[1:SIGMA]                         # [SIGMA-1, F]
-    pb_ep = _probe(b_idx, eb + 1)[1:SIGMA]
+    pb_sp = _probe(b_idx, kb)                                  # [SIGMA-1, F]
+    pb_ep = _probe(b_idx, eb + 1)
     ka, ia = torch.sort(ab)
     ra = torch.empty_like(pb_sp)
-    ra[:, ia] = _probe(a_idx, ka)[1:SIGMA]                     # back to b order
+    ra[:, ia] = _probe(a_idx, ka)                             # back to b order
     child_sp = _c64(b_idx)[:, None] + pb_sp
     child_ep = _c64(b_idx)[:, None] + pb_ep - 1
     child_a = _c64(a_idx)[:, None] + ra
@@ -139,16 +145,16 @@ def singles_step_streamed(a_idx: DeviceFMIndex, b_idx: DeviceFMIndex,
     """singles_step with probes in place of gathers.  It takes and returns
     the frontier with spos ascending, so the B probe needs no sort; the two
     sorts are by A position, for the A probe, and by child B position, to
-    hand the next depth an ascending spos."""
-    pb = _probe(b_idx, spos)                                   # [OUT_W, F]
-    c_b = pb[LANES]
-    alive = c_b != 0
-    c_b = c_b[alive]
-    lf_b = b_idx.C.to(torch.int64)[c_b] + pb[:, alive].gather(0, c_b[None])[0]
+    hand the next depth an ascending spos.  B's probe is K1's lf form (the
+    symbol and its rank), A's its select form (the rank of that symbol)."""
+    sym_b, rank_b = streamed_lf(b_idx.rec, _keys(spos), b_idx.size)
+    alive = sym_b != 0
+    c_b = sym_b[alive]                                         # int32
+    lf_b = b_idx.C.to(torch.int64)[c_b] + rank_b[alive]
     ka, perm = torch.sort(sa[alive])
     lf_s, cb_s = lf_b[perm], c_b[perm]
     child_a = (a_idx.C.to(torch.int64)[cb_s]
-               + _probe(a_idx, ka).gather(0, cb_s[None])[0])
+               + streamed_select(a_idx.rec, _keys(ka), cb_s, a_idx.size))
     spos2, perm2 = torch.sort(lf_s)
     return child_a[perm2], spos2
 

@@ -7,6 +7,8 @@
     python3 chip_smoke.py --pass-split N     # only large-walk-v's and
                                              # large-trie's passes, split,
                                              # N times each
+    python3 chip_smoke.py --probe            # only K1's forms, at random
+                                             # keys and at a -v count's
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -16,10 +18,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    worker processes, overlapping the phases below;
 3. kernels: each kernel against its plain PyTorch version on the card,
    compared for exact equality (all integer) and timed with CUDA events:
-   K1 and K2 at the main path's shapes, K1 also at the trie search's (a
-   sorted batch of many equal neighbours that ends in queries equal to
-   the size), K2 also with every lane starting at a super-block's edge
-   or at the table's last position, K3
+   K1 and K2 at the main path's shapes, K1 in each of its three forms
+   (full, select, also fused with the sort's permutation, and lf; timed
+   on the device by CUDA graph replay and through the wrapper) also at
+   the trie search's batches (sorted, with many equal neighbours, ending
+   in queries equal to the size), K2 also with every lane starting at a
+   super-block's edge or at the table's last position, K3
    (the read decode) on the real BWT of 10^6 reads of 1..24 characters
    plus one of 100, past the 64-row cap, with lanes starting at block
    offsets 0 and 31; the full decode must also give back the generated
@@ -111,8 +115,10 @@ Then bench.py's large scale and the record build at the layout's limit:
     and 2^21 rows, each in a window of its own (search time, K1 launches,
     peak device memory, the run's counts); then K1 at
     the count's shape (both range ends of 2^21 patterns, every step's
-    sorted keys over the large A) against its plain version, timed with
-    its bound; a line after each walk
+    sorted keys, characters and permutation over the large A): the
+    select form as the count launches it and the full form against their
+    plain versions, timed with their bounds beside the select form
+    without the fusion; a line after each walk
     merge splits its search phase (search_split: B's sidecar read, its
     layout, the gate's composition count, index build and spot walk, A's
     index, the planes, the walk and its copies, the primed stream).  Then
@@ -144,8 +150,8 @@ Then bench.py's large scale and the record build at the layout's limit:
     card tensors at the fold's shapes (rec_build over the base, piece 209
     and the output; walk_planes_build over the base and the piece; K3 and
     decode_rows_build over the piece's 2,000,000 reads; K2 walking them
-    through the base's and the piece's planes; K1 with 2^17 sorted queries
-    on the output's table); the output byte-identical to the pairwise
+    through the base's and the piece's planes; K1's forms with 2^17 sorted
+    queries on the output's table); the output byte-identical to the pairwise
     route's (merge_files of the base and piece 209, then of that and piece
     208); launches, phases, per-step drain times, peak host RSS and peak
     device memory of each part;
@@ -466,6 +472,39 @@ def time_ms(fn, device, iters: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def time_ms_graph(fn, device, iters: int = 20) -> float:
+    """Mean device milliseconds per call of fn, with no host time between
+    calls: `iters` calls captured in one CUDA graph, replayed once to warm
+    up and timed by CUDA events over three replays.  A small launch, whose
+    wrapper takes longer on the host than its kernel on the card, is timed
+    here at its kernel's own speed (time_ms there measures the host)."""
+    import torch
+
+    if device.type != "cuda":
+        return time_ms(fn, device, iters)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
+
+
 # Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet): memory rate,
 # and the float32 rate outside the tensor cores, which stands in for the
 # int32 compares and adds these kernels do (the sheet gives no int32 rate).
@@ -504,27 +543,170 @@ def bound(n_bytes: int, n_ops: int) -> dict:
             "library_ms": None}
 
 
-def probe_bound(rec, q, size: int) -> dict:
-    """K1's bound on these queries: every query read (4 B) and the function's
-    output written, the 8 ranks and the symbol (36 B; the kernel's zero
-    rows 9..OUT_W-1 are layout, not output: no caller reads them), and
-    each record that some query falls in read once (64 B; queries past the
-    size touch none).  Operations: a compare and an add per position of
-    the block and occ lane.  bound_ms_with_zero_rows is the same with all
-    OUT_W rows written: what its earlier times were held against."""
+def probe_bound(rec, q, size: int, form: str = "full", chars=None,
+                perm=None) -> dict:
+    """K1's bound for one form on these keys: every key read (4 B), and for
+    the select form each live key's character (its dtype's bytes; a key
+    past the size reads none) and every key's entry of the sort's
+    permutation where it is given (8 B); the form's output written
+    once (full: the 8 ranks and the symbol, 36 B; select: one rank, 4 B;
+    lf: the symbol and its rank, 8 B); each record that some live key
+    falls in read once (64 B; keys past the size touch none).  Operations:
+    a compare and an add per position of the block and character counted,
+    8 characters for full, 1 for select and lf.  bound_ms_with_zero_rows
+    is the bound of the kernel before it had forms, which stored 16 rows a
+    key whatever its caller read and counted all 8 characters: what its
+    earlier times were held against."""
     import torch
 
-    from bwtmerge_tpu_torch.ops.rank_streamed import OUT_W
     from bwtmerge_tpu_torch.ops.rank_torch import BLK, LANES
 
     live = q[q <= size]
     blocks = int(torch.unique_consecutive(live >> 5).numel())
+    n_live = int(live.numel())
     records = blocks * rec.shape[1] * 4
-    n_ops = int(live.numel()) * BLK * LANES * 2
-    out = bound(q.numel() * (4 + 4 * (LANES + 1)) + records, n_ops)
+    per_key = 4 + PROBE_OUT_BYTES[form] + (0 if perm is None else 8)
+    chars_read = 0 if chars is None else n_live * chars.element_size()
+    out = bound(q.numel() * per_key + chars_read + records,
+                n_live * BLK * (LANES if form == "full" else 1) * 2)
     out["bound_ms_with_zero_rows"] = bound(
-        q.numel() * (4 + 4 * OUT_W) + records, n_ops)["bound_ms"]
+        q.numel() * (4 + 4 * 16) + records, n_live * BLK * LANES * 2
+    )["bound_ms"]
     return out
+
+
+PROBE_OUT_BYTES = {"full": 36, "select": 4, "lf": 8}   # K1's output a key
+K1_RECORD = {"route": "cuda",
+             "source": "bwtmerge_tpu_torch/csrc/streamed_probe.cu",
+             "replaces": "bwtmerge_tpu/ops/rank_pallas.py:58"}
+
+
+def probe_forms(rec, q, size: int, chars, perm) -> dict:
+    """K1's forms on the sorted keys q: {form: (kernel call, plain call,
+    bound)}.  chars (one a key) and perm (the permutation that sorted the
+    keys) feed the select form: "select" takes the characters beside the
+    sorted keys, as the trie's singles step does; "select_fused" takes
+    them in the caller's order with perm and writes each rank back there,
+    as a -v count's step does."""
+    from bwtmerge_tpu_torch.ops import rank_streamed as rs
+
+    beside = chars[perm]
+    return {
+        "full": (lambda: rs.streamed_probe(rec, q, size),
+                 lambda: rs.streamed_probe_plain(rec, q, size),
+                 probe_bound(rec, q, size)),
+        "select": (lambda: rs.streamed_select(rec, q, beside, size),
+                   lambda: rs.streamed_select_plain(rec, q, beside, size),
+                   probe_bound(rec, q, size, "select", beside)),
+        "select_fused": (
+            lambda: rs.streamed_select(rec, q, chars, size, perm),
+            lambda: rs.streamed_select_plain(rec, q, chars, size, perm),
+            probe_bound(rec, q, size, "select", chars, perm)),
+        "lf": (lambda: rs.streamed_lf(rec, q, size),
+               lambda: rs.streamed_lf_plain(rec, q, size),
+               probe_bound(rec, q, size, "lf")),
+    }
+
+
+def held_equal(what: str, kernel, plain, device) -> int:
+    """kernel() against plain(), exact; the max abs error (0), or raise."""
+    import torch
+
+    got, want = kernel(), plain()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} differs from its plain version (max "
+                             f"abs err {err})")
+    return err
+
+
+def check_probe(device, rec, q, size: int, chars, perm,
+                plain_iters: int = 20) -> dict:
+    """Each of K1's forms on the sorted keys q against its plain version,
+    exact, then timed: {form: record}, with each form's bound.  ms is the
+    kernel's device time (time_ms_graph), wrapper_ms a call through its
+    wrapper as a caller makes it (time_ms: the host's time where that is
+    longer), plain_ms the plain version's."""
+    out = {}
+    for form, (kernel, plain, bnd) in probe_forms(rec, q, size, chars,
+                                                  perm).items():
+        out[form] = {
+            "max_abs_err": held_equal(f"K1's {form} form at {q.numel()} "
+                                      f"keys", kernel, plain, device),
+            "ms": time_ms_graph(kernel, device),
+            "wrapper_ms": time_ms(kernel, device),
+            "plain_ms": time_ms(plain, device, plain_iters), **bnd}
+        out[form]["share_of_bound"] = out[form]["bound_ms"] / out[form]["ms"]
+    return out
+
+
+def probe_batch(n_pos: int, n_q: int, n_sent: int, gen, device):
+    """n_q sorted random keys in [0, n_pos], the last equal to n_pos, then
+    n_sent 2^31-1 sentinels; characters 0..7 in a random caller's order
+    and the permutation that sorts that order: (q, chars, perm)."""
+    import torch
+
+    from bwtmerge_tpu_torch.ops.rank_torch import LANES
+
+    q = torch.sort(torch.randint(0, n_pos + 1, (n_q,), generator=gen,
+                                 device=device)).values
+    q[-1] = n_pos                                     # q == size
+    q = torch.cat([q, torch.full((n_sent,), 2**31 - 1, device=device,
+                                 dtype=q.dtype)]).to(torch.int32)
+    chars = torch.randint(0, LANES, (q.numel(),), generator=gen,
+                          device=device, dtype=torch.int32)
+    perm = torch.randperm(q.numel(), generator=gen, device=device)
+    return q, chars, perm
+
+
+def check_probe_forms(device, idx, gen, n_q: int, n_sent: int) -> list:
+    """K1's three forms (full, select, lf; select also fused with the
+    sort's permutation) against their plain versions at n_q sorted random
+    queries and n_sent sentinels and at the trie search's batches, each
+    timed with its bound: the forms' records."""
+    import torch
+
+    n_pos = idx.size
+    q, chars, perm = probe_batch(n_pos, n_q, n_sent, gen, device)
+    at = check_probe(device, idx.rec, q, idx.size, chars, perm)
+    records = {form: {"name": f"streamed_probe.{form}", **K1_RECORD,
+                      **at[form]} for form in ("full", "select", "lf")}
+    records["select"]["fused"] = at["select_fused"]
+    for form, rec in at.items():
+        log(f"K1 {form}: {n_pos} positions, {n_q} sorted queries + "
+            f"{n_sent} sentinels: equal, {rec['ms']:.4f} ms on the card "
+            f"({rec['wrapper_ms']:.4f} ms a wrapper call) vs plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['share_of_bound']:.1%}; "
+            f"{rec['bound_ms_with_zero_rows']:.4f} ms at 16 rows)")
+
+    # the trie search's batches: a frontier's b_sp at depths 1-3 is sorted
+    # with long runs of equal neighbours, and its last b_ep + 1 is the size
+    for name, distinct in (("depth-1", 4), ("depth-3", 64),
+                           ("singles", n_q // 4)):
+        qt = torch.sort(torch.randint(0, n_pos, (distinct,), generator=gen,
+                                      device=device)).values
+        qt = qt.repeat_interleave(n_q // 4 // distinct)
+        qt = torch.cat([qt, torch.full((17,), n_pos, device=device,
+                                       dtype=qt.dtype)]).to(torch.int32)
+        _, ct, pt = probe_batch(n_pos, qt.numel(), 0, gen, device)
+        at = check_probe(device, idx.rec, qt, idx.size, ct, pt, 3)
+        for form, got in at.items():
+            rec = (records["select"]["fused"] if form == "select_fused"
+                   else records[form])
+            rec["max_abs_err"] = max(rec["max_abs_err"], got["max_abs_err"])
+            rec.setdefault("trie_batches", {})[name] = {
+                k: got[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                    "bound_ms", "share_of_bound")}
+        log(f"K1, trie {name} batch: {qt.numel()} queries, {distinct} "
+            f"distinct + 17 equal to the size: every form equal; "
+            + ", ".join(f"{form} {got['ms']:.4f} ms ({got['wrapper_ms']:.4f} "
+                        f"a wrapper call; bound {got['bound_ms']:.4f})"
+                        for form, got in at.items()))
+    return list(records.values())
 
 
 def walk_bound(creads, steps: int, planes, nblk: int) -> dict:
@@ -691,8 +873,6 @@ def check_kernels(device, n_pos: int, n_q: int, n_sent: int,
     tensors; exact equality.  Returns the per-kernel records."""
     import torch
 
-    from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
-                                                      streamed_probe_plain)
     from bwtmerge_tpu_torch.ops.rank_torch import BLK
     from bwtmerge_tpu_torch.ops.walk_torch import (NC, SUPER, build_cplanes,
                                                    build_walk_planes,
@@ -701,54 +881,7 @@ def check_kernels(device, n_pos: int, n_q: int, n_sent: int,
 
     idx = random_index(n_pos, device, seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    q = torch.sort(torch.randint(0, n_pos + 1, (n_q,), generator=gen,
-                                 device=device)).values
-    q[-1] = n_pos                                     # q == size
-    q = torch.cat([q, torch.full((n_sent,), 2**31 - 1, device=device,
-                                 dtype=q.dtype)]).to(torch.int32)
-    got = streamed_probe(idx.rec, q, idx.size)
-    want = streamed_probe_plain(idx.rec, q, idx.size)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"streamed_probe differs from its plain version "
-                             f"(max abs err {err})")
-    k1 = {"name": "streamed_probe", "route": "cuda",
-          "source": "bwtmerge_tpu_torch/csrc/streamed_probe.cu",
-          "replaces": "bwtmerge_tpu/ops/rank_pallas.py:58",
-          "max_abs_err": err,
-          "ms": time_ms(lambda: streamed_probe(idx.rec, q, idx.size), device),
-          "plain_ms": time_ms(
-              lambda: streamed_probe_plain(idx.rec, q, idx.size), device),
-          **probe_bound(idx.rec, q, idx.size)}
-    log(f"K1 streamed_probe: {n_pos} positions, {n_q} sorted queries + "
-        f"{n_sent} sentinels: equal, {k1['ms']:.4f} ms vs plain "
-        f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms")
-
-    # the trie search's batches: a frontier's b_sp at depths 1-3 is sorted
-    # with long runs of equal neighbours, and its last b_ep + 1 is the size
-    for name, distinct in (("depth-1", 4), ("depth-3", 64),
-                           ("singles", n_q // 4)):
-        qt = torch.sort(torch.randint(0, n_pos, (distinct,), generator=gen,
-                                      device=device)).values
-        qt = qt.repeat_interleave(n_q // 4 // distinct)
-        qt = torch.cat([qt, torch.full((17,), n_pos, device=device,
-                                       dtype=qt.dtype)]).to(torch.int32)
-        got = streamed_probe(idx.rec, qt, idx.size)
-        want = streamed_probe_plain(idx.rec, qt, idx.size)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        k1["max_abs_err"] = max(k1["max_abs_err"], e)
-        if not torch.equal(got, want):
-            raise AssertionError(f"streamed_probe differs from its plain "
-                                 f"version on the trie's {name} batch (max "
-                                 f"abs err {e})")
-        ms = time_ms(lambda: streamed_probe(idx.rec, qt, idx.size), device)
-        log(f"K1 streamed_probe, trie {name} batch: {qt.numel()} queries, "
-            f"{distinct} distinct + 17 equal to the size: equal, {ms:.4f} ms, "
-            f"bound {probe_bound(idx.rec, qt, idx.size)['bound_ms']:.4f} ms")
+    k1 = check_probe_forms(device, idx, gen, n_q, n_sent)
 
     # the walk's table: its build kernel against its plain version
     planes = build_walk_planes(idx.rec)
@@ -822,7 +955,7 @@ def check_kernels(device, n_pos: int, n_q: int, n_sent: int,
         f"edges, {k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms, bound "
         f"{k2['bound_ms']:.4f} ms ({k2['bound_ms_narrow_table']:.4f} ms "
         f"with the narrow table)")
-    return [k1, k2, kb]
+    return k1 + [k2, kb]
 
 
 def check_decode(device, path: str, m: int = K3_READS, seed: int = 31,
@@ -1153,10 +1286,11 @@ def xlarge_kernels(device, base: str, piece: str, out: str) -> dict:
     tables; decode_rows_build over the piece's table and K3 over its
     2,000,000 lanes at the fold's first cap; K2 walking those reads through
     the base's planes (step 1's walk) and through the piece's own (the
-    shape of step 2's second walk); K1 with a streamed batch of
-    XL_PROBE_QUERIES sorted queries on the output's table.  These launches
-    are not counted.  Per kernel: its cases (shape, max abs err, kernel ms
-    over 3 calls, plain ms of one call) and its max abs err."""
+    shape of step 2's second walk); K1's forms (select also fused) with a
+    streamed batch of XL_PROBE_QUERIES sorted queries on the output's
+    table, each under its form's name.  These launches are not counted.
+    Per kernel: its cases (shape, max abs err, kernel ms over 3 calls,
+    plain ms of one call) and its max abs err."""
     import torch
 
     from bwtmerge_tpu_torch.formats.streaming_read import (alphabet_for,
@@ -1167,9 +1301,7 @@ def xlarge_kernels(device, base: str, piece: str, out: str) -> dict:
                                                      decode_creads_device,
                                                      decode_creads_plain,
                                                      rows_used)
-    from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
-                                                      streamed_probe_plain)
-    from bwtmerge_tpu_torch.ops.rank_torch import (BLK, DeviceFMIndex,
+    from bwtmerge_tpu_torch.ops.rank_torch import (BLK, LANES, DeviceFMIndex,
                                                    build_rec, build_rec_plain,
                                                    c_array,
                                                    pack_nibbles_chunked)
@@ -1285,11 +1417,15 @@ def xlarge_kernels(device, base: str, piece: str, out: str) -> dict:
     q = torch.cat([q, torch.full((XL_PROBE_SENTINELS,), 2**31 - 1,
                                  device=device, dtype=q.dtype)]
                   ).to(torch.int32)
-    held("streamed_probe", f"the output, {o_idx.size} positions, "
-         f"{XL_PROBE_QUERIES} sorted queries",
-         lambda: streamed_probe(o_idx.rec, q, o_idx.size),
-         lambda: streamed_probe_plain(o_idx.rec, q, o_idx.size))
-    del o_idx, q
+    chars = torch.randint(0, LANES, (q.numel(),), generator=gen,
+                          device=device, dtype=torch.int32)
+    perm = torch.randperm(q.numel(), generator=gen, device=device)
+    for form, (kernel, plain, _) in probe_forms(o_idx.rec, q, o_idx.size,
+                                                chars, perm).items():
+        held(f"streamed_probe.{form.split('_')[0]}",
+             f"the output, {o_idx.size} positions, {XL_PROBE_QUERIES} "
+             f"sorted queries ({form})", kernel, plain)
+    del o_idx, q, chars, perm
     torch.cuda.empty_cache()
     return checks
 
@@ -1824,6 +1960,14 @@ def count_pinned_blocks() -> None:
     ra_stream.Block.__init__ = counting
 
 
+def launch_counts() -> dict:
+    """Each kernel's launches, and each of K1's forms' under
+    "streamed_probe.<form>"."""
+    from bwtmerge_tpu_torch import kernels
+
+    return {**kernels.launches(), **kernels.launches_by_form()}
+
+
 def drive(fn) -> tuple:
     """fn() with the kernels' launch counts set to 0 just before and read
     just after: (fn's result, launches, wall seconds)."""
@@ -1836,7 +1980,7 @@ def drive(fn) -> tuple:
     PINNED["bytes"] = PINNED["live"]
     t0 = time.monotonic()
     out = fn()
-    return out, kernels.launches(), time.monotonic() - t0
+    return out, launch_counts(), time.monotonic() - t0
 
 
 def run_cli(argv, cli: str = "bwt_merge") -> tuple:
@@ -1888,19 +2032,22 @@ def main_path(device, fixtures: Fixtures, reads=MEDIUM,
         same_bytes(out, os.path.join(d, "merged.sga"),
                    "main path, trie against the walk")
         # beyond the -v passes (the walk run's count): three probes a range
-        # depth, two a singles depth
+        # depth (the full form), two a singles depth (lf and select)
         extra = counts["streamed_probe"] - walk_launches["streamed_probe"]
         if extra < 2 * (READ_LEN + 1) or counts["walk_emit"] \
-                or counts["walk_planes_build"] or counts["rec_build"] < 1:
+                or counts["walk_planes_build"] or counts["rec_build"] < 1 \
+                or min(counts["streamed_probe.full"],
+                       counts["streamed_probe.lf"]) < 1:
             raise AssertionError(
                 f"trie main path: {extra} probe launches beyond the walk "
                 f"run's, needs {2 * (READ_LEN + 1)}; launches {counts}")
-    elif min(counts["streamed_probe"], counts["walk_emit"],
+    elif min(counts["streamed_probe.select"], counts["walk_emit"],
              counts["walk_planes_build"], counts["rec_build"]) < 1 \
             or counts["decode"]:
         raise AssertionError(f"the two-input main path launched {counts}: "
-                             f"needs K1, K2, walk_planes_build and "
-                             f"rec_build, and no decode")
+                             f"needs K1 (its select form, the -v counts), "
+                             f"K2, walk_planes_build and rec_build, and no "
+                             f"decode")
 
     phases = phase_times(err)
     b_bases = b_runs.size()
@@ -2917,69 +3064,121 @@ def large_path(device) -> dict:
 
 
 def count_probe_times(device, a_path: str, pat_path: str) -> dict:
-    """K1 at a -v count's shape: the sorted keys of every step of the
-    count of pat_path's patterns (2^21 32-mers: 2^22 keys a step, the
-    finished ends as 2^31-1 sentinels) in the large A's index, taken from
-    one count and replayed.  Each step's keys through K1 against the plain
-    version, exact; each step timed both ways, with its bound (probe_bound).
-    Sums over the count's steps, and the mean a launch."""
+    """K1 at a -v count's shape: the select form's keys, characters and
+    permutation at every step of the count of pat_path's patterns (2^21
+    32-mers: 2^22 keys a step, the finished ends as 2^31-1 sentinels) in
+    the large A's index, taken from one count and replayed.  At each
+    step's keys: the select form as the count launches it (fused: the
+    characters read and the ranks written through the sort's permutation)
+    and the full form, each against its plain version, exact; then timed,
+    each with its bound (probe_bound): the fused select, the select alone
+    on the characters beside the sorted keys, the step's work without the
+    fusion (the gather of the characters, that select and the scatter of
+    the ranks), and the full form.  Sums over the count's steps, the mean
+    a launch, and each share of its bound."""
     import torch
 
     import bwtmerge_tpu_torch as port
     from bwtmerge_tpu_torch.cli.common import read_rows
-    from bwtmerge_tpu_torch.ops import rank_streamed
+    from bwtmerge_tpu_torch.ops import rank_streamed as rs
     from bwtmerge_tpu_torch.ops.rank_torch import batch_count
 
     fmi = port.load_fmi(a_path, "sga")
     idx = fmi.device_index(device)
+    rec, size = idx.rec, idx.size
     patterns = read_rows(pat_path)
-    keys = []
-    probe = rank_streamed.streamed_probe
+    steps = []
+    select = rs.streamed_select
 
-    def keep(rec, q, size):
-        keys.append(q.clone())
-        return probe(rec, q, size)
+    def keep(rec, q, chars, size, perm=None):
+        steps.append((q.clone(), chars.clone(), perm.clone()))
+        return select(rec, q, chars, size, perm)
 
-    rank_streamed.streamed_probe = keep
+    rs.streamed_select = keep
     try:
         batch_count(idx, patterns, fmi.alpha.char2comp)
     finally:
-        rank_streamed.streamed_probe = probe
-    out = {"positions": idx.size, "patterns": len(patterns),
-           "launches": len(keys), "queries": int(keys[0].numel()),
-           "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "bound_ms_with_zero_rows": 0.0, "max_abs_err": 0,
-           "live_queries": 0}
-    bound_by = set()
-    for q in keys:
-        got = probe(idx.rec, q, idx.size)
-        want = rank_streamed.streamed_probe_plain(idx.rec, q, idx.size)
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"streamed_probe differs from its plain "
-                                 f"version at the count's shape (max abs "
-                                 f"err {err})")
-        del got, want
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["ms"] += time_ms(lambda: probe(idx.rec, q, idx.size), device)
-        out["plain_ms"] += time_ms(
-            lambda: rank_streamed.streamed_probe_plain(idx.rec, q, idx.size),
-            device, 2)
-        step = probe_bound(idx.rec, q, idx.size)
-        out["bound_ms"] += step["bound_ms"]
-        out["bound_ms_with_zero_rows"] += step["bound_ms_with_zero_rows"]
-        bound_by.add(step["bound_by"])
-        out["live_queries"] += int((q <= idx.size).sum())
-    out["bound_by"] = "/".join(sorted(bound_by))
-    out["ms_a_launch"] = out["ms"] / len(keys)
-    out["bound_ms_a_launch"] = out["bound_ms"] / len(keys)
-    out["share_of_bound"] = out["bound_ms"] / out["ms"]
-    out["share_of_bound_with_zero_rows"] = (out["bound_ms_with_zero_rows"]
-                                            / out["ms"])
+        rs.streamed_select = select
+
+    def unfused(q, chars, perm):
+        rk_sorted = select(rec, q, chars[perm], size)
+        rk = torch.empty_like(rk_sorted)
+        rk[perm] = rk_sorted
+        return rk
+
+    ways = ("select_fused", "select", "full")
+    out = {"positions": size, "patterns": len(patterns),
+           "launches": len(steps), "queries": int(steps[0][0].numel()),
+           "live_queries": 0, "max_abs_err": 0, "unfused_step_ms": 0.0,
+           "unfused_step_wrapper_ms": 0.0,
+           **{w: {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bound_ms_with_zero_rows": 0.0,
+                  "bound_by": set()}
+              for w in ways}}
+    for q, chars, perm in steps:
+        forms = probe_forms(rec, q, size, chars, perm)
+        for w in ("select_fused", "full"):
+            kernel, plain, _ = forms[w]
+            out["max_abs_err"] = max(out["max_abs_err"], held_equal(
+                f"K1's {w} form at the count's keys", kernel, plain, device))
+        out["max_abs_err"] = max(out["max_abs_err"], held_equal(
+            "the count's step without the fusion",
+            lambda: unfused(q, chars, perm), forms["select_fused"][1],
+            device))
+        for w in ways:
+            kernel, plain, bnd = forms[w]
+            fig = out[w]
+            fig["ms"] += time_ms_graph(kernel, device)
+            fig["wrapper_ms"] += time_ms(kernel, device)
+            fig["plain_ms"] += time_ms(plain, device, 2)
+            fig["bound_ms"] += bnd["bound_ms"]
+            fig["bound_ms_with_zero_rows"] += bnd["bound_ms_with_zero_rows"]
+            fig["bound_by"].add(bnd["bound_by"])
+        out["unfused_step_ms"] += time_ms_graph(
+            lambda: unfused(q, chars, perm), device)
+        out["unfused_step_wrapper_ms"] += time_ms(
+            lambda: unfused(q, chars, perm), device)
+        out["live_queries"] += int((q <= size).sum())
+    for w in ways:
+        fig = out[w]
+        fig["bound_by"] = "/".join(sorted(fig["bound_by"]))
+        fig["ms_a_launch"] = fig["ms"] / len(steps)
+        fig["wrapper_ms_a_launch"] = fig["wrapper_ms"] / len(steps)
+        fig["bound_ms_a_launch"] = fig["bound_ms"] / len(steps)
+        fig["share_of_bound"] = fig["bound_ms"] / fig["ms"]
+        fig["share_of_bound_with_zero_rows"] = (
+            fig["bound_ms_with_zero_rows"] / fig["ms"])
+    out["unfused_step_ms_a_launch"] = out["unfused_step_ms"] / len(steps)
+    out["unfused_step_wrapper_ms_a_launch"] = (
+        out["unfused_step_wrapper_ms"] / len(steps))
     log(f"K1 at the count's shape, large A: equal; {json.dumps(out)}")
-    del keys, idx, fmi
+    del steps, idx, fmi
     torch.cuda.empty_cache()
     return out
+
+
+def probe_only(device) -> dict:
+    """K1's forms alone (`--probe`): check_probe_forms at the kernels
+    phase's shapes, then count_probe_times over the large A (built and
+    cached as large_path builds it)."""
+    import torch
+
+    measure_copy_rate(device)
+    idx = random_index(K1_POSITIONS, device, 7)
+    gen = torch.Generator(device=device).manual_seed(8)
+    records = check_probe_forms(device, idx, gen, K1_QUERIES, K1_SENTINELS)
+    del idx
+    torch.cuda.empty_cache()
+    d = os.path.join(CACHE, f"large_{LARGE[0]}_{LARGE[1]}")
+    a_path = os.path.join(d, "a.sga")
+    build_large_fixture(device, a_path, LARGE[0], LARGE_SEEDS[0], False)
+    cell_pat = os.path.join(d, f"patterns_{CELL_PATTERNS}.txt")
+    if not os.path.exists(cell_pat):
+        write_patterns(cell_pat, [reads_of(m, seed) for m, seed
+                                  in zip(LARGE, LARGE_SEEDS)], CELL_PATTERNS,
+                       3)
+    return {"records": records,
+            "count_shape": count_probe_times(device, a_path, cell_pat)}
 
 
 def decode_rows_large_b(device, path: str) -> dict:
@@ -3201,7 +3400,7 @@ def multihost_worker(rank: int, port_no: int, a_path: str, b_path: str,
                                 fmt, shard_dir=out_dir, device=device,
                                 stats=stats)
         figures[fmt] = {"merge_s": time.monotonic() - t, **stats}
-    figures["launches"] = kernels.launches()
+    figures["launches"] = launch_counts()
     print("MULTIHOST " + json.dumps(figures), flush=True)
 
 
@@ -3290,6 +3489,9 @@ def sharded_build(device, shards: int = 4, reads: int = MEDIUM[0]) -> dict:
     return result
 
 
+MAIN_PATHS = ("two_input_merge", "kway_fold", "trie_merge")
+
+
 def main() -> int:
     import torch
 
@@ -3316,6 +3518,10 @@ def main() -> int:
         # only the large walk merges' search phases, split: no result line
         log(json.dumps({"search_split": search_splits(device,
                                                       int(sys.argv[2]))}))
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--probe":
+        # only K1's forms, at random keys and at a -v count's: no result line
+        log(json.dumps({"probe": probe_only(device)}))
         return 0
     if len(sys.argv) > 2 and sys.argv[1] == "--pass-split":
         # only the large pair's passes, split: no result line
@@ -3351,9 +3557,12 @@ def main() -> int:
         large = large_path(device)
         for key in ("spilled_walk_v", "walk", "trie"):
             paths[f"large_{key}"] = large[key]
+        count_shape = large["k1_count_shape"]
         for rec in records:
-            if rec["name"] == "streamed_probe":
-                rec["count_shape"] = large["k1_count_shape"]
+            if rec["name"] == "streamed_probe.select":
+                rec["count_shape"] = count_shape
+            elif rec["name"] == "streamed_probe.full":
+                rec["count_shape"] = count_shape["full"]
         log(json.dumps({"pass_split": pass_splits(device, 1)}))
         rec_build_near_limit(device)
         # the xlarge tier's 3-way fold, its base cut to three folds
@@ -3401,9 +3610,13 @@ def main() -> int:
         rec["xlarge"] = xl_checks[rec["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  rec["xlarge"]["max_abs_err"])
-        by_path = {k: r["launches"][rec["name"]] for k, r in paths.items()}
+        by_path = {k: r["launches"].get(rec["name"], 0)
+                   for k, r in paths.items()}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
+        if not sum(by_path[k] for k in MAIN_PATHS):
+            raise AssertionError(f"{rec['name']} was launched no time on "
+                                 f"the main paths {MAIN_PATHS}")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "bwtmerge_tpu"))
     if foreign:

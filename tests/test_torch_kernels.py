@@ -14,8 +14,12 @@ from bwtmerge_tpu_torch.ops.decode_torch import (build_decode_rows,
                                                  decode_creads,
                                                  decode_creads_device,
                                                  decode_creads_plain)
-from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_probe,
-                                                  streamed_probe_plain)
+from bwtmerge_tpu_torch.ops.rank_streamed import (streamed_lf,
+                                                  streamed_lf_plain,
+                                                  streamed_probe,
+                                                  streamed_probe_plain,
+                                                  streamed_select,
+                                                  streamed_select_plain)
 from bwtmerge_tpu_torch.ops.rank_torch import (REC_TILE, build_rec,
                                                build_rec_plain, rec_build)
 from bwtmerge_tpu_torch.ops.walk_torch import (SUPER,
@@ -38,29 +42,85 @@ def _index(n_pos, device):
     return random_index(n_pos, device, seed=3)
 
 
+PROBE_FORMS = ["full", "select", "select-fused", "lf"]
+
+
+def _probe_form(form, rec, q, size, chars, perm, plain=False):
+    """K1's `form` (or its plain version): select-fused is the select form
+    given the sort's permutation, chars in the caller's order."""
+    if form == "full":
+        return (streamed_probe_plain if plain else streamed_probe)(rec, q,
+                                                                   size)
+    if form == "lf":
+        return (streamed_lf_plain if plain else streamed_lf)(rec, q, size)
+    fn = streamed_select_plain if plain else streamed_select
+    return fn(rec, q, chars, size, perm if form == "select-fused" else None)
+
+
+def _probe_batch(n_pos, n_q, n_sent, device, seed):
+    """Unsorted keys in [0, n_pos] (n_pos among them) and sentinels, sorted:
+    (sorted keys, the sort's permutation, characters 0..9 beside the
+    unsorted keys)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randint(0, n_pos + 1, (n_q + n_sent,), generator=gen,
+                      device=device)
+    q[0] = n_pos
+    q[n_q:] = SENT
+    q = q[torch.randperm(q.numel(), generator=gen, device=device)]
+    ks, perm = torch.sort(q.to(torch.int32))
+    chars = torch.randint(0, 10, (q.numel(),), generator=gen, device=device,
+                          dtype=torch.int32)
+    return ks, perm, chars
+
+
+@pytest.mark.parametrize("form", PROBE_FORMS)
 @pytest.mark.parametrize("n_pos", [1, 31, 32, 1000, 1 << 20])
-def test_probe_kernel_matches_plain(cuda, n_pos):
+def test_probe_kernel_matches_plain(cuda, n_pos, form):
     idx = _index(n_pos, cuda)
-    q = torch.sort(torch.randint(0, n_pos + 1, (5000,), device=cuda)).values
-    q[-1] = n_pos
-    q = torch.cat([q, torch.full((300,), SENT, device=cuda,
-                                 dtype=q.dtype)]).to(torch.int32)
+    ks, perm, chars = _probe_batch(n_pos, 5000, 300, cuda, n_pos)
+    name = form.split("-")[0]
     before = kernels.STREAMED_PROBE.launches
-    got = streamed_probe(idx.rec, q, idx.size)
+    by_form = kernels.STREAMED_PROBE.forms[name]
+    got = _probe_form(form, idx.rec, ks, idx.size, chars, perm)
     assert kernels.STREAMED_PROBE.launches == before + 1
-    assert torch.equal(got, streamed_probe_plain(idx.rec, q, idx.size))
+    assert kernels.STREAMED_PROBE.forms[name] == by_form + 1
+    want = _probe_form(form, idx.rec, ks, idx.size, chars, perm, plain=True)
+    assert torch.equal(got, want)
+    if form == "select-fused":
+        # the fused realign is the sorted select put back by the permutation
+        unfused = torch.empty_like(got)
+        unfused[perm] = streamed_select_plain(idx.rec, ks, chars[perm],
+                                              idx.size)
+        assert torch.equal(got, unfused)
 
 
-def test_probe_kernel_empty_and_all_sentinels(cuda):
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.int16,
+                                   torch.int64])
+def test_probe_kernel_select_takes_each_char_dtype(cuda, dtype):
     idx = _index(1000, cuda)
+    ks, perm, chars = _probe_batch(1000, 3000, 100, cuda, 17)
+    chars = (chars - 1).to(dtype)            # -1 (255 as uint8) to 8
+    for p in (None, perm):
+        c = chars if p is not None else chars[perm]
+        assert torch.equal(streamed_select(idx.rec, ks, c, idx.size, p),
+                           streamed_select_plain(idx.rec, ks, c, idx.size, p))
+
+
+@pytest.mark.parametrize("form", PROBE_FORMS)
+def test_probe_kernel_empty_and_all_sentinels(cuda, form):
+    idx = _index(1000, cuda)
+    rows = {"full": (9,), "lf": (2,)}.get(form, ())
     before = kernels.STREAMED_PROBE.launches
-    empty = streamed_probe(idx.rec, torch.zeros(0, dtype=torch.int32,
-                                                device=cuda), idx.size)
-    assert empty.shape == (16, 0)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    got = _probe_form(form, idx.rec, empty, idx.size, empty,
+                      empty.to(torch.int64))
+    assert got.shape == rows + (0,)
     assert kernels.STREAMED_PROBE.launches == before     # nothing launched
-    sent = streamed_probe(idx.rec, torch.full((777,), SENT, dtype=torch.int32,
-                                              device=cuda), idx.size)
-    assert not sent.any()
+    sent = torch.full((777,), SENT, dtype=torch.int32, device=cuda)
+    got = _probe_form(form, idx.rec, sent, idx.size, sent,
+                      torch.arange(777, device=cuda).flip(0))
+    assert kernels.STREAMED_PROBE.launches == before + 1
+    assert got.shape == rows + (777,) and not got.any()
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (7, 300), (50, 1 << 16)])
@@ -210,6 +270,14 @@ def test_wrappers_reject_cpu_cuda_mix(cuda):
     idx = _index(1000, cuda)
     with pytest.raises(ValueError):
         streamed_probe(idx.rec, torch.zeros(4, dtype=torch.int32), idx.size)
+    q = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        streamed_select(idx.rec, q, q.cpu(), idx.size)
+    with pytest.raises(ValueError):
+        streamed_select(idx.rec, q, q, idx.size, torch.arange(4))
+    with pytest.raises(ValueError):
+        streamed_select(idx.rec, q, torch.zeros(8, dtype=torch.int32,
+                                                device=cuda)[::2], idx.size)
 
 
 def test_blocked_walk_on_card_matches_cpu(cuda):

@@ -101,41 +101,149 @@ def test_index_from_arrays_gives_same_answers(pair):
                           device="cpu")
 
 
+PROBE_FORMS = ["full", "select", "lf"]
+
+
+def _sorted_keys(n, rng, live=200, sent=40):
+    """A sorted batch of `live` positions in [0, n], the last one n, then
+    `sent` 2^31-1 sentinels."""
+    q = np.sort(rng.integers(0, n + 1, size=live)).astype(np.int32)
+    q[-1] = n                                              # q == size
+    return np.concatenate([q, np.full(sent, SENT, np.int32)])
+
+
+def _pallas(j, q):
+    """The Pallas probe, interpreted: int32[16, Q]."""
+    return np.asarray(rank_pallas.streamed_probe(j.rec, jnp.asarray(q),
+                                                 interpret=True))
+
+
+def _row_select(p, c):
+    """rank_pallas._row_select of p's rank rows at characters c, clamped to
+    [0, 7] as backward_search_streamed clamps them."""
+    c = np.clip(np.asarray(c, np.int64), 0, rank_torch.LANES - 1)
+    return np.asarray(rank_pallas._row_select(
+        jnp.asarray(p[:rank_torch.LANES]), jnp.asarray(c.astype(np.int32))))
+
+
+def _form(form, rec, q, chars, n, perm=None):
+    """K1's `form` of the port on CPU tensors, as numpy."""
+    if form == "full":
+        got = rank_streamed.streamed_probe(rec, q, n)
+    elif form == "lf":
+        got = rank_streamed.streamed_lf(rec, q, n)
+    else:
+        got = rank_streamed.streamed_select(rec, q, chars, n, perm)
+    return got.numpy()
+
+
+def _pallas_form(form, p, chars):
+    """What `form` answers, from the Pallas probe's rows p."""
+    if form == "full":
+        return p[:rank_torch.LANES + 1]
+    if form == "lf":
+        return np.stack([p[rank_torch.LANES],
+                         _row_select(p, p[rank_torch.LANES])])
+    return _row_select(p, chars)
+
+
+@pytest.mark.parametrize("form", PROBE_FORMS)
 @pytest.mark.parametrize("seed", [0, 1, "mult32", "tiny"])
-def test_plain_probe_matches_pallas(seed):
+def test_plain_probe_matches_pallas(seed, form):
+    """Each of K1's forms equals what its callers took from the Pallas
+    probe's 16 rows, whose rows 9-15 are zero: the full form its rows 0-8,
+    the select form the rank of a character beside each key (0, 7, 8 and
+    255 among them, clamped to [0, 7]), the lf form row 8 and the rank of
+    that symbol.  Every form writes zeros at the sentinels."""
     j, t, runs = _pair(seed)
     n = runs.size()
     rng = np.random.default_rng(12)
-    q = np.sort(rng.integers(0, n + 1, size=200)).astype(np.int32)
-    q[-1] = n                                              # q == size
-    q = np.concatenate([q, np.full(40, SENT, np.int32)])   # sentinel tail
-    want = np.asarray(rank_pallas.streamed_probe(j.rec, jnp.asarray(q),
-                                                 interpret=True))
-    got = rank_streamed.streamed_probe(t.rec, torch.from_numpy(q), n).numpy()
-    np.testing.assert_array_equal(got[:9, :200], want[:9, :200])
-    assert got[8, 199] == rank_torch.SIGMA                 # pad symbol
-    assert not got[9:].any() and not got[:, 200:].any()
+    q = _sorted_keys(n, rng)
+    chars = rng.integers(0, 9, size=q.size).astype(np.int32)
+    chars[:4] = (0, 7, 8, 255)
+    want = _pallas(j, q)
+    assert not want[rank_torch.LANES + 1:, :200].any()     # the TPU's pad
+    got = _form(form, t.rec, torch.from_numpy(q), torch.from_numpy(chars), n)
+    assert got.shape == {"full": (9, 240), "lf": (2, 240),
+                         "select": (240,)}[form]
+    np.testing.assert_array_equal(got[..., :200],
+                                  _pallas_form(form, want, chars)[..., :200])
+    assert not got[..., 200:].any()
+    if form != "select":
+        assert got[-1 if form == "full" else 0, 199] == rank_torch.SIGMA
 
 
-def test_probe_empty_and_all_sentinel_batches(pair):
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8, np.int16, np.int32,
+                                   np.int64])
+def test_select_form_takes_each_char_dtype_and_the_sort_permutation(
+        pair, dtype, fused):
+    """The select form reads its characters in the caller's dtype, clamped
+    to [0, 7] (negative int8 to 0); given the sort's permutation it reads
+    them in the caller's order and writes each rank back there, as the
+    Pallas search's sort, probe, select and realign do."""
+    j, t, runs = pair
+    n = runs.size()
+    rng = np.random.default_rng(15)
+    q_lane = rng.permutation(_sorted_keys(n, rng, live=300, sent=60))
+    info = np.iinfo(dtype)
+    chars = rng.integers(max(info.min, -3), 9, size=q_lane.size)
+    chars[:4] = (0, 7, 8, info.max)
+    chars = chars.astype(dtype)
+    ks, perm = torch.sort(torch.from_numpy(q_lane))
+    p = _pallas(j, ks.numpy())
+    order = perm.numpy()
+    if fused:
+        got = _form("select", t.rec, ks, torch.from_numpy(chars), n, perm)
+        want = np.empty(q_lane.size, np.int32)
+        want[order] = _row_select(p, chars[order])
+        live = q_lane != SENT
+    else:
+        got = _form("select", t.rec, ks, torch.from_numpy(chars[order]), n)
+        want = _row_select(p, chars[order])
+        live = ks.numpy() != SENT
+    np.testing.assert_array_equal(got[live], want[live])
+    assert not got[~live].any()
+
+
+def test_lf_form_is_the_gather_paths_lf_step(pair):
     _, t, runs = pair
-    empty = rank_streamed.streamed_probe(
-        t.rec, torch.zeros(0, dtype=torch.int32), runs.size())
-    assert empty.shape == (16, 0)
-    sent = rank_streamed.streamed_probe(
-        t.rec, torch.full((64,), SENT, dtype=torch.int32), runs.size())
-    assert sent.shape == (16, 64) and not sent.any()
+    n = runs.size()
+    q = torch.arange(n, dtype=torch.int32)
+    sym, rk = rank_streamed.streamed_lf(t.rec, q, n)
+    want_rk, want_sym = t.inverse_select(q)
+    assert torch.equal(sym, want_sym) and torch.equal(rk, want_rk)
 
 
-def test_probe_wrapper_rejects_bad_inputs(pair):
+@pytest.mark.parametrize("form", PROBE_FORMS)
+def test_probe_empty_and_all_sentinel_batches(pair, form):
+    _, t, runs = pair
+    shape = {"full": (9,), "lf": (2,), "select": ()}[form]
+    for n_q, key in ((0, 0), (64, SENT)):
+        q = torch.full((n_q,), key, dtype=torch.int32)
+        got = _form(form, t.rec, q, torch.full((n_q,), 3, dtype=torch.int32),
+                    runs.size())
+        assert got.shape == shape + (n_q,) and not got.any()
+
+
+@pytest.mark.parametrize("form", PROBE_FORMS)
+def test_probe_wrapper_rejects_bad_inputs(pair, form):
     _, t, runs = pair
     q = torch.zeros(4, dtype=torch.int32)
+    c = torch.zeros(4, dtype=torch.int32)
+    n = runs.size()
     with pytest.raises(ValueError):
-        rank_streamed.streamed_probe(t.rec.to(torch.int64), q, runs.size())
+        _form(form, t.rec.to(torch.int64), q, c, n)
     with pytest.raises(ValueError):
-        rank_streamed.streamed_probe(t.rec, q.to(torch.int64), runs.size())
+        _form(form, t.rec, q.to(torch.int64), c, n)
     with pytest.raises(ValueError):
-        rank_streamed.streamed_probe(t.rec, q, 32 * t.rec.shape[0])
+        _form(form, t.rec, q, c, 32 * t.rec.shape[0])
+    if form == "select":
+        for chars, perm in ((c[:3], None), (c.to(torch.float32), None),
+                            (c, torch.arange(4, dtype=torch.int32)),
+                            (c, torch.arange(3))):
+            with pytest.raises(ValueError):
+                rank_streamed.streamed_select(t.rec, q, chars, n, perm)
 
 
 def test_streamed_ranks_match_gather(pair):

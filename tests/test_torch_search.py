@@ -175,6 +175,31 @@ def test_singles_phase_keeps_spos_ascending(kind, seed, streamed):
                               want[np.lexsort(want.T[::-1])])
 
 
+@pytest.mark.parametrize("kind,seed", [("mixed", 1), ("single", 5),
+                                       ("shared", 6)])
+def test_singles_step_streamed_matches_jax(kind, seed):
+    """The streamed singles step (K1's lf form on B, its select form on A)
+    against the JAX index's LF step and ranks, over a depth of singletons
+    at every B position (a_pos any A position, spos ascending)."""
+    fa, fb = _fmis(*_reads(kind, seed))
+    ja, jb = _jax_indexes(fa, fb)
+    rng = np.random.default_rng(seed)
+    spos = np.arange(fb.size(), dtype=np.int64)
+    sa = rng.integers(0, fa.size() + 1, size=spos.size)
+    lf, c = (np.asarray(x, np.int64) for x in jb.LF_step(jnp.asarray(spos)))
+    child = (np.asarray(ja.C, np.int64)[c]
+             + np.asarray(ja.rank(jnp.asarray(sa), jnp.asarray(c))))
+    alive = c != 0
+    want = np.stack([child[alive], lf[alive]], 1)
+    got_sa, got_spos = search_torch.singles_step_streamed(
+        fa.device_index("cpu"), fb.device_index("cpu"), torch.from_numpy(sa),
+        torch.from_numpy(spos))
+    assert bool((got_spos[1:] >= got_spos[:-1]).all())
+    got = np.stack([got_sa.numpy(), got_spos.numpy()], 1)
+    assert np.array_equal(got[np.lexsort(got.T[::-1])],
+                          want[np.lexsort(want.T[::-1])])
+
+
 @pytest.mark.parametrize("streamed", [False, True])
 @pytest.mark.parametrize("blocks", [1, 3])
 @pytest.mark.parametrize("kind,seed", CASES)
